@@ -1,0 +1,114 @@
+"""Weight bridge: flax parameter trees (as numpy arrays) -> the port's state dicts.
+
+The inverse of the torch -> flax maps in gigapose_tpu/models/convert.py: Dense
+kernels (in, out) become Linear weights (out, in); Conv kernels HWIO become
+OIHW; LayerNorm / BatchNorm `scale` becomes `weight`, BatchNorm running
+`mean` / `var` become `running_mean` / `running_var`. The port's module names
+are the original PyTorch ones, so one JAX random init drives both packages and
+torch -> flax -> torch is the identity (tests/test_torch_models.py).
+
+Inputs are nested dicts of array-likes (numpy, or anything np.asarray takes);
+nothing here imports jax.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+
+def _t(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, dtype=np.float32, copy=True))
+
+
+def _linear(p: Mapping, prefix: str, out: Dict) -> None:
+    out[prefix + "weight"] = _t(np.asarray(p["kernel"]).T)
+    if "bias" in p:
+        out[prefix + "bias"] = _t(p["bias"])
+
+
+def _conv(p: Mapping, prefix: str, out: Dict) -> None:
+    out[prefix + "weight"] = _t(np.asarray(p["kernel"]).transpose(3, 2, 0, 1))  # HWIO -> OIHW
+    if "bias" in p:
+        out[prefix + "bias"] = _t(p["bias"])
+
+
+def _ln(p: Mapping, prefix: str, out: Dict) -> None:
+    out[prefix + "weight"] = _t(p["scale"])
+    out[prefix + "bias"] = _t(p["bias"])
+
+
+def _bn(p: Mapping, stats: Mapping, prefix: str, out: Dict) -> None:
+    _ln(p, prefix, out)
+    out[prefix + "running_mean"] = _t(stats["mean"])
+    out[prefix + "running_var"] = _t(stats["var"])
+    out[prefix + "num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
+
+
+def vit_flax_to_torch(p: Mapping) -> Dict[str, torch.Tensor]:
+    """models.vit.ViT params (the `vit` subtree) -> ViT state dict."""
+    out: Dict[str, torch.Tensor] = {
+        "cls_token": _t(p["cls_token"]),
+        "pos_embed": _t(p["pos_embed"]),
+    }
+    if "register_tokens" in p:
+        out["register_tokens"] = _t(p["register_tokens"])
+    _conv(p["patch_embed"], "patch_embed.proj.", out)
+    _ln(p["norm"], "norm.", out)
+    depth = sum(1 for k in p if k.startswith("block"))
+    for i in range(depth):
+        blk, b = p[f"block{i}"], f"blocks.{i}."
+        _ln(blk["norm1"], b + "norm1.", out)
+        _linear(blk["attn"]["qkv"], b + "attn.qkv.", out)
+        _linear(blk["attn"]["proj"], b + "attn.proj.", out)
+        out[b + "ls1.gamma"] = _t(blk["ls1"]["gamma"])
+        _ln(blk["norm2"], b + "norm2.", out)
+        for name, layer in blk["mlp"].items():  # fc1/fc2 or w12/w3
+            _linear(layer, f"{b}mlp.{name}.", out)
+        out[b + "ls2.gamma"] = _t(blk["ls2"]["gamma"])
+    return out
+
+
+def ae_flax_to_torch(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """AENet variables {"params": {"vit": ...}} -> AENet state dict."""
+    return {"vit." + k: v for k, v in vit_flax_to_torch(variables["params"]["vit"]).items()}
+
+
+def ist_backbone_flax_to_torch(params: Mapping, stats: Mapping) -> Dict[str, torch.Tensor]:
+    """ISTBackbone params + batch_stats -> ISTBackbone state dict."""
+    out: Dict[str, torch.Tensor] = {}
+    _conv(params["conv1"], "conv1.", out)
+    _bn(params["bn1"], stats["bn1"], "bn1.", out)
+    for li in range(1, 5):
+        for bi in range(2):
+            bp, bs, pre = params[f"layer{li}_{bi}"], stats[f"layer{li}_{bi}"], f"layer{li}.{bi}."
+            _conv(bp["conv1"], pre + "conv1.", out)
+            _bn(bp["bn1"], bs["bn1"], pre + "bn1.", out)
+            _conv(bp["conv2"], pre + "conv2.", out)
+            _bn(bp["bn2"], bs["bn2"], pre + "bn2.", out)
+            if "down_conv" in bp:
+                _conv(bp["down_conv"], pre + "downsample.0.", out)
+                _bn(bp["down_bn"], bs["down_bn"], pre + "downsample.1.", out)
+    _conv(params["out_conv"], "layer4_outconv.", out)
+    return out
+
+
+def regressor_flax_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Regressor params -> Regressor state dict (Sequential indices 0/2/4)."""
+    out: Dict[str, torch.Tensor] = {}
+    for head, name in (("scale_predictor", "scale"), ("inplane_predictor", "inplane")):
+        for j, fc in zip((0, 2, 4), ("fc1", "fc2", "fc3")):
+            _linear(params[f"{name}_{fc}"], f"{head}.{j}.", out)
+    return out
+
+
+def ist_flax_to_torch(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """ISTNet variables {"params": {backbone, regressor}, "batch_stats":
+    {backbone}} -> ISTNet state dict."""
+    p, s = variables["params"], variables["batch_stats"]
+    out = {"backbone." + k: v for k, v in
+           ist_backbone_flax_to_torch(p["backbone"], s["backbone"]).items()}
+    out.update({"regressor." + k: v for k, v in regressor_flax_to_torch(p["regressor"]).items()})
+    return out
