@@ -112,3 +112,19 @@ def ist_flax_to_torch(variables: Mapping) -> Dict[str, torch.Tensor]:
            ist_backbone_flax_to_torch(p["backbone"], s["backbone"]).items()}
     out.update({"regressor." + k: v for k, v in regressor_flax_to_torch(p["regressor"]).items()})
     return out
+
+
+def int8_params_flax_to_torch(qp: Mapping) -> Dict:
+    """The JAX package's int8 serving tree (models/vit_int8.prepare_int8_params,
+    as numpy arrays) -> the port's tree (models/vit_int8): same keys and
+    values, each `*_wq` (K, N) int8 stored K-contiguous for the GEMM."""
+
+    def conv(key, a):
+        a = np.asarray(a)
+        if key.endswith("_wq"):
+            return torch.from_numpy(np.ascontiguousarray(a.T, dtype=np.int8)).t()
+        return _t(a)
+
+    out: Dict = {k: conv(k, v) for k, v in qp.items() if k != "blocks"}
+    out["blocks"] = [{k: conv(k, v) for k, v in b.items()} for b in qp["blocks"]]
+    return out

@@ -143,6 +143,26 @@ class Block(nn.Module):
         return x + self.ls2(self.mlp(self.norm2(x)))
 
 
+def add_tokens(x, cls_token, pos_embed, register_tokens, pos_embed_size, gh, gw):
+    """(B, gh*gw, C) patch embeddings -> (B, 1 [+ R] + gh*gw, C): position
+    embedding (resized when the grid is not pos_embed_size^2), CLS token
+    first, then the register tokens if any."""
+    B, _, C = x.shape
+    pos_cls, pos_patch = pos_embed[:, :1], pos_embed[:, 1:]
+    if (gh, gw) != (pos_embed_size, pos_embed_size):
+        # antialiased bicubic == jax.image.resize(..., "bicubic")
+        s = pos_embed_size
+        p = pos_patch.reshape(1, s, s, C).permute(0, 3, 1, 2)
+        p = F.interpolate(p, size=(gh, gw), mode="bicubic", align_corners=False,
+                          antialias=True)
+        pos_patch = p.permute(0, 2, 3, 1).reshape(1, gh * gw, C)
+    x = torch.cat([(cls_token + pos_cls).expand(B, 1, C), x + pos_patch], dim=1)
+    if register_tokens is not None:
+        reg = register_tokens.expand(B, register_tokens.shape[1], C)
+        x = torch.cat([x[:, :1], reg, x[:, 1:]], dim=1)
+    return x
+
+
 class PatchEmbed(nn.Module):
     def __init__(self, cfg: ViTConfig):
         super().__init__()
@@ -179,21 +199,8 @@ class ViT(nn.Module):
                          stride=conv.stride)
         x = x.to(torch.float32).flatten(2).transpose(1, 2)  # (B, gh*gw, C)
 
-        pos_cls, pos_patch = self.pos_embed[:, :1], self.pos_embed[:, 1:]
-        if (gh, gw) != (self.pos_embed_size, self.pos_embed_size):
-            # antialiased bicubic == jax.image.resize(..., "bicubic")
-            s = self.pos_embed_size
-            p = pos_patch.reshape(1, s, s, c.embed_dim).permute(0, 3, 1, 2)
-            p = F.interpolate(p, size=(gh, gw), mode="bicubic", align_corners=False,
-                              antialias=True)
-            pos_patch = p.permute(0, 2, 3, 1).reshape(1, gh * gw, c.embed_dim)
-        x = x + pos_patch
-        cls_tok = (self.cls_token + pos_cls).expand(B, 1, c.embed_dim)
-        x = torch.cat([cls_tok, x], dim=1)
-        if c.num_register_tokens:
-            reg = self.register_tokens.expand(B, c.num_register_tokens, c.embed_dim)
-            x = torch.cat([x[:, :1], reg, x[:, 1:]], dim=1)
-
+        reg = self.register_tokens if c.num_register_tokens else None
+        x = add_tokens(x, self.cls_token, self.pos_embed, reg, self.pos_embed_size, gh, gw)
         for blk in self.blocks:
             x = blk(x)
         x_prenorm = x.to(torch.float32)

@@ -16,19 +16,22 @@ Precision: f32 matmuls and convolutions are full f32 (TF32 off, set by
 f32 run matches the JAX reference. Serving uses compute_dtype "bfloat16"
 (bf16 matmuls; f32 LayerNorm, softmax, BatchNorm and residual) and a bf16
 store (feature_dtype), as gigapose_tpu/configs/model/large.yaml does.
+`GigaPoseEstimator.quantize_serving()` swaps the AE for the int8 (W8A8)
+serving path (models/vit_int8.AENetInt8); call it before onboarding.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 from torch import nn
 
 from gigapose_tpu_torch.models.ae_net import AENet
 from gigapose_tpu_torch.models.ist_net import ISTNet, default_ist_net
+from gigapose_tpu_torch.models.vit_int8 import AENetInt8
 from gigapose_tpu_torch.ops.fused_matching import fused_match_templates
 from gigapose_tpu_torch.ops.matching import match_templates
 from gigapose_tpu_torch.ops.pose_recovery import recover_poses
@@ -83,7 +86,7 @@ class EstimatorConfig:
 
 
 def coarse_forward(
-    ae_net: AENet,
+    ae_net: Union[AENet, AENetInt8],
     ist_net: ISTNet,
     store: TemplateStore,
     batch: DetectionBatch,
@@ -204,7 +207,7 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
 class GigaPoseEstimator:
     """The two nets on one device plus the coarse entry points."""
 
-    ae_net: AENet
+    ae_net: Union[AENet, AENetInt8]
     ist_net: ISTNet
     config: EstimatorConfig = EstimatorConfig()
 
@@ -227,10 +230,22 @@ class GigaPoseEstimator:
         )
         return cls(ae_net.to(device).eval(), ist_net.to(device).eval(), config)
 
-    def quantize_serving(self, backend: Optional[str] = None, ist=False):
-        raise NotImplementedError(
-            "int8 serving (the W8A8 ViT kernels) is not ported yet: ROADMAP B2/B3"
-        )
+    def quantize_serving(self, ist: Union[bool, str] = False) -> "GigaPoseEstimator":
+        """Swap the AE backbone for the W8A8 int8 serving path
+        (models/vit_int8.AENetInt8: the ops/qmm.py kernels on CUDA tensors,
+        their plain versions on CPU tensors), quantized from the current
+        weights on their device. `ae_apply`, and so onboarding, then use it.
+
+        Inference only. Call after loading weights and before onboarding:
+        queries and the template store must share one feature extractor."""
+        if ist:
+            raise NotImplementedError(
+                "int8 IST serving (models/ist_int8, ist=True / 'static') is not "
+                "ported: ROADMAP A11"
+            )
+        if not isinstance(self.ae_net, AENetInt8):
+            self.ae_net = AENetInt8.from_ae_net(self.ae_net).eval()
+        return self
 
     @torch.inference_mode()
     def __call__(self, store: TemplateStore, batch: DetectionBatch) -> CoarsePrediction:

@@ -38,7 +38,8 @@ def test_port_imports_no_jax_pil_yaml_or_jax_package():
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert result["leaked"] == [], result["leaked"]
     for expected in ("gigapose_tpu_torch.ops.fused_matching", "gigapose_tpu_torch.kernels.build",
-                     "gigapose_tpu_torch.pipeline.estimator", "gigapose_tpu_torch.models.convert"):
+                     "gigapose_tpu_torch.pipeline.estimator", "gigapose_tpu_torch.models.convert",
+                     "gigapose_tpu_torch.ops.qmm", "gigapose_tpu_torch.models.vit_int8"):
         assert expected in result["modules"]
 
 

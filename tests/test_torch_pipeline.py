@@ -219,5 +219,6 @@ def test_estimator_create_is_seeded():
     assert not a.ae_net.training and not a.ist_net.training
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
-    with pytest.raises(NotImplementedError, match="B2/B3"):
-        a.quantize_serving()
+    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+        a.quantize_serving(ist=True)
+    assert type(a.quantize_serving().ae_net).__name__ == "AENetInt8"
