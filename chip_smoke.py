@@ -12,11 +12,14 @@ inputs, twice: with the bf16 AE (`serving_quant=off`) and with the int8 AE
 
 1. device + build: the card, its power limit, the nvcc builds of the
    kernels (one nvcc per source, all started together) with ptxas's
-   registers and spills;
-2. the fused matching kernel against its plain PyTorch version on planted
-   worlds, at P=16 and at the serving shape B=32, V=162, P=256, C=1024, in
-   f32 and bf16 stores (idx / valid / top-k ids exact, scores within
-   MATCH_ATOL), with both times from CUDA events;
+   registers and spills per kernel (any spill fails the run);
+2. the fused matching kernels against their plain PyTorch version on
+   planted worlds, at P=16 and at the serving shape B=32, V=162, P=256,
+   C=1024: the wgmma kernel on a bf16 store and the CUDA-core kernel on an
+   f32 store (idx / valid / top-k ids exact, scores within MATCH_ATOL),
+   with both times from CUDA events, and at the serving shape the bound and
+   a partial yardstick (one batched matmul of the pre-gathered views: the
+   similarity alone);
 3. the int8 kernels (ops/qmm.py) against their plain versions at the ViT-L
    serving shapes, T = 32 x 257 tokens: qmm in its four (LN, residual) forms
    at K=1024, N=3072 and at the main path's proj and fc2 shapes; the GEMM's
@@ -25,7 +28,11 @@ inputs, twice: with the bf16 AE (`serving_quant=off`) and with the int8 AE
    qmm_mlp at C=1024, hidden 4096; qmm_attn_block with 16 heads at Np=257
    and at Np=264 with 7 padded keys masked; errors in quantization steps for
    qmm (check_steps) and relative to the output or branch elsewhere
-   (check_rel), both times from CUDA events;
+   (check_rel), both times from CUDA events; then each int8 kernel alone
+   at the main path's shapes (the row prologue at its four widths, the GEMM
+   in its four epilogue modes, the attention core) with its time, plain
+   time, bound and yardstick (SDPA for the attention core; torch._int_mm,
+   the int32 product alone, for the GEMM);
 4. bf16 onboarding of 2 objects x 162 procedurally textured 480x640 RGBA
    templates;
 5. bf16 requests: images with several detections, one of them a template
@@ -40,21 +47,28 @@ inputs, twice: with the bf16 AE (`serving_quant=off`) and with the int8 AE
    same AENetInt8 on the CPU (the plain versions) on a request's crops;
 8. int8 against bf16: per-token cosine of the AE features of a request's
    crops (> 0.99, the JAX package's gate), and the AE forward's device time
-   in both precisions at B = 4, 8, 16, 32.
+   in both precisions at B = 4, 8, 16, 32;
+9. the whole coarse forward at B=32 (a request of 32 detections through
+   prepare_batch and the estimator) on both paths, on the host clock around
+   work that ends in synchronize, with its stages from CUDA events.
 
 Every kernel count is set to 0 just before a path is driven and read just
 after; launches made to compare a kernel with its plain version are not
 counted.
 
 Any failed check raises, so the script exits non-zero. It needs CUDA and
-never falls back to the CPU. The last lines are the kernels' JSON record,
-the card's name and power limit from nvidia-smi, and the result JSON.
+never falls back to the CPU. The last lines are the kernels' JSON record
+(one entry per hand-written kernel and per chain that ports a TPU kernel:
+launches in the main path's runs, error, ms, plain_ms, bound_ms, bound_by,
+and library_ms or partial_library_ms), the card's name and power limit from
+nvidia-smi, and the result JSON.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -62,6 +76,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from gigapose_tpu_torch.kernels.build import build, load_library
 from gigapose_tpu_torch.lib3d.icosphere import template_object_poses
@@ -108,6 +123,12 @@ WIRING_MOVED_COS = 0.9
 TOKENS = 257  # ViT-L/14 at 224 x 224: CLS + 16 x 16 patches, not padded
 INT8_COS_MIN = 0.99
 KERNELS = ("fused_matching", "qmm")
+# published dense peaks of an H100 SXM at 700 W (NVIDIA's data sheet): the
+# least time of a kernel is the larger of its operations over the peak of
+# their type and its bytes (each input read once, each output written once)
+# over the memory rate
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+PEAK_BYTES = 3.35e12
 
 
 def log(phase: str, **fields) -> None:
@@ -139,6 +160,31 @@ def cuda_ms(fn, warmup: int = 2, iters: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def bound(ops: float, kind: str, nbytes: float) -> dict:
+    """The least time the card could take: max(ops / peak of their type,
+    bytes / memory rate), and which of the two it is."""
+    t_ops, t_bytes = ops / PEAK_OPS[kind] * 1e3, nbytes / PEAK_BYTES * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def ptxas_report(log_text: str) -> dict:
+    """{kernel: (registers, spill store bytes, spill load bytes)} from nvcc's -Xptxas -v."""
+    out, name = {}, None
+    for ln in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            k = re.search(r"(match_bf16|match_f32|gemm|quant_rows|attention)_kernel(I\w*?E)?",
+                          m.group(1))
+            name = k.group(1) + (k.group(2) or "")
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and name:
+            out[name] = [None, int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name in out:
+            out[name][0] = int(m.group(1))
+    return out
 
 
 def planted_world(seed, B, O, V, npat, C):
@@ -187,6 +233,20 @@ def compare_matcher(args, npat: int, k: int = 5, exact: bool = True) -> dict:
     return stats
 
 
+def matcher_bound(args, dtype) -> dict:
+    """Bound of one matching launch: 2 B V P^2 C operations in the
+    features' type (bf16 tensor cores, or f32 CUDA cores), and the bytes of
+    the labelled objects' views, the query, the masks, labels and outputs."""
+    tar, store = args[0], args[1]
+    B, P, C = tar.shape
+    V = store.shape[1]
+    objs = int(torch.unique(args[4]).numel())
+    esz = tar.element_size()
+    nbytes = (objs * V * P * C + B * P * C) * esz + (objs * V * P + B * P + B) * 4 \
+        + (B * V + 3 * B * V * P) * 4
+    return bound(2.0 * B * V * P * P * C, "bf16" if dtype == torch.bfloat16 else "f32", nbytes)
+
+
 def phase_kernel_vs_plain(dev) -> dict:
     """Planted worlds at P=16 and at the serving shape, f32 and bf16 stores."""
     record = {}
@@ -202,9 +262,19 @@ def phase_kernel_vs_plain(dev) -> dict:
             ms = cuda_ms(lambda: fm.fused_match_scores(*args, **kw))
             plain_ms = cuda_ms(lambda: fm.match_scores_plain(*args, **kw))
             tag = f"{name}_{str(dtype).split('.')[-1]}"
+            extra = {}
+            if name == "serving":
+                extra = matcher_bound(args, dtype)
+                # partial yardstick: the similarity alone, one batched matmul
+                # of the pre-gathered views, in the store's dtype
+                B, P, C = args[0].shape
+                src = args[1][args[4].long()].reshape(B, -1, C)
+                tar_t = args[0].transpose(1, 2)
+                extra["partial_library_ms"] = cuda_ms(lambda: torch.bmm(src, tar_t))
+                del src
             log("kernel_vs_plain", world=tag, kernel_ms=f"{ms:.4f}",
-                plain_ms=f"{plain_ms:.4f}", **stats)
-            record[tag] = dict(ms=ms, plain_ms=plain_ms, **stats)
+                plain_ms=f"{plain_ms:.4f}", **stats, **extra)
+            record[tag] = dict(ms=ms, plain_ms=plain_ms, **stats, **extra)
             del args
     torch.cuda.empty_cache()
     return record
@@ -338,6 +408,11 @@ def phase_qmm_vs_plain(dev) -> dict:
                           Q.attention_plain(qkv, kb, **kw), CORE_LIMITS)
         record(f"attention_core_Np{Np}_masked{masked}", stats,
                lambda: Q._attention(qkv, kb, **kw), lambda: Q.attention_plain(qkv, kb, **kw))
+        if not masked:  # yardstick: SDPA on the same q, k, v (the port never calls it)
+            q, k, v = qkv.view(32, Np, 3, 16, C // 16).permute(2, 0, 3, 1, 4)
+            rec[f"attention_core_Np{Np}_masked0"]["library_ms"] = cuda_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v), iters=10)
+            del q, k, v
         del qkv
         aargs = (xa, *wqkv, *wproj, g, be, ls, kb)
         stats = check_rel(f"qmm_attn_block Np={Np}", Q.qmm_attn_block(*aargs, **kw),
@@ -348,14 +423,93 @@ def phase_qmm_vs_plain(dev) -> dict:
     return rec
 
 
+# the int8 kernels' main-path shapes per ViT-L block at B=32 (T = 32 x 257):
+# row prologues (input width, LayerNorm) and GEMMs (mode, K, N, name)
+PROLOGUES = ((1024, True), (1024, False), (1024, True), (4096, False))
+GEMMS = ((Q._MODE_BF16, 1024, 3072, "qkv"), (Q._MODE_RES, 1024, 1024, "proj"),
+         (Q._MODE_GELU, 1024, 4096, "fc1"), (Q._MODE_RES, 4096, 1024, "fc2"),
+         (Q._MODE_F32, 1024, 3072, "plain qmm, off the main path"))
+
+
+def phase_int8_kernels(dev, qrec) -> dict:
+    """Each int8 kernel alone at the main path's shapes: time, plain time,
+    bound and yardstick. The row prologue's int8 rows against the plain
+    version's: equal without LayerNorm, within one step with it (LN's mean
+    in another order). The GEMM epilogues' agreement is held in phase 3."""
+    T, C = 32 * TOKENS, 1024
+    rec = {"row_prologue": [], "gemm": {}}
+    g, be = randn(dev, (1, C), SEED + 21).abs() + 0.5, randn(dev, (1, C), SEED + 22, 0.2)
+    for K, ln in PROLOGUES:
+        x = randn(dev, (T, K), SEED + 70 + K)
+        lnargs = (g, be) if ln else (None, None)
+        kern = lambda: Q._quantize_rows(x, *lnargs)
+        plain = lambda: Q._quant_rows(Q._ln(x, g, be) if ln else x)
+        (xq, xs), (pq, ps) = kern(), plain()
+        steps = int((xq.int() - pq.int()).abs().max())
+        check(steps <= (1 if ln else 0) and bool(torch.isfinite(xs).all()),
+              f"row prologue K={K} ln={ln}: {steps} steps from its plain version")
+        r = dict(K=K, ln=ln, ms=cuda_ms(kern, iters=20), plain_ms=cuda_ms(plain),
+                 max_abs_err=float((xs - ps.reshape(-1)).abs().max()), max_steps=steps,
+                 # bytes only: its few f32 operations per element take far less
+                 **bound(0.0, "f32", T * K * 5 + T * 4 + (2 * K * 4 if ln else 0)))
+        log("int8_kernel", kernel="row_prologue",
+            **{k: (f"{v:.4g}" if isinstance(v, float) else v) for k, v in r.items()})
+        rec["row_prologue"].append(r)
+    for mode, K, N, name in GEMMS:
+        xq, xs = Q._quantize_rows(randn(dev, (T, K), SEED + 80 + K))
+        wq, ws, b = int8_weight(dev, K, N, SEED + 81)
+        res, ls = randn(dev, (T, N), SEED + 82), randn(dev, (1, N), SEED + 83, 0.3)
+        odt = torch.bfloat16 if mode == Q._MODE_BF16 else torch.float32
+        out = torch.empty((T, N), dtype=odt, device=dev)
+        kern = lambda: Q._gemm(xq, xs, wq, ws, b, out, mode, res, ls)
+
+        def plain():
+            y = Q._dot_i8(xq, wq) * xs.reshape(-1, 1) * ws + b
+            if mode == Q._MODE_RES:
+                return res + y * ls
+            return Q._gelu_tanh(y) if mode == Q._MODE_GELU else y.to(odt)
+
+        nbytes = T * K + N * K + T * 4 + 2 * N * 4 + T * N * out.element_size() \
+            + (T * N * 4 + N * 4 if mode == Q._MODE_RES else 0)
+        r = dict(name=name, K=K, N=N, ms=cuda_ms(kern, iters=20), plain_ms=cuda_ms(plain),
+                 partial_library_ms=cuda_ms(lambda: torch._int_mm(xq, wq), iters=10),
+                 **bound(2.0 * T * K * N, "int8", nbytes))
+        log("int8_kernel", kernel=f"gemm mode {mode}",
+            **{k: (f"{v:.4g}" if isinstance(v, float) else v) for k, v in r.items()})
+        rec["gemm"].setdefault(mode, []).append(r)
+        del out, res
+    # the attention core at B=32, Np=257, 16 heads, as phase 3 timed it
+    B, H, hd = 32, 16, 64
+    core = qrec[f"attention_core_Np{TOKENS}_masked0"]
+    rec["attention"] = dict(
+        ms=core["ms"], plain_ms=core["plain_ms"], max_abs_err=core["max_abs_err"],
+        library_ms=core["library_ms"],
+        **bound(4.0 * B * H * TOKENS * TOKENS * hd, "bf16",
+                B * TOKENS * 3 * C * 2 + TOKENS * 4 + B * TOKENS * C * 4))
+    log("int8_kernel", kernel="attention_core",
+        **{k: (f"{v:.4g}" if isinstance(v, float) else v) for k, v in rec["attention"].items()})
+    return rec
+
+
 def reset_counts() -> None:
-    for fn in (fm.fused_match_scores, Q.qmm, Q.qmm_mlp, Q.qmm_attn_block):
+    for fn in (fm.fused_match_scores, Q.qmm, Q.qmm_mlp, Q.qmm_attn_block, Q._quantize_rows,
+               Q._attention):
         fn.launches = 0
+    for c in (fm.fused_match_scores.launches_by_dtype, Q._gemm.launches):
+        for key in c:
+            c[key] = 0
 
 
 def counts() -> dict:
+    """Launches of every wrapper and of every hand-written kernel."""
+    by_dtype = fm.fused_match_scores.launches_by_dtype
+    gemm = Q._gemm.launches
     return dict(fused_matching=fm.fused_match_scores.launches, qmm=Q.qmm.launches,
-                qmm_mlp=Q.qmm_mlp.launches, qmm_attn_block=Q.qmm_attn_block.launches)
+                qmm_mlp=Q.qmm_mlp.launches, qmm_attn_block=Q.qmm_attn_block.launches,
+                match_bf16=by_dtype[torch.bfloat16], match_f32=by_dtype[torch.float32],
+                row_prologue=Q._quantize_rows.launches, attention_core=Q._attention.launches,
+                gemm_f32=gemm[Q._MODE_F32], gemm_residual=gemm[Q._MODE_RES],
+                gemm_gelu=gemm[Q._MODE_GELU], gemm_bf16=gemm[Q._MODE_BF16])
 
 
 def onboard(est, templates, dev, tag):
@@ -507,6 +661,129 @@ def make_scene(rng, templates, pasted, num_others):
     return rgb, np.stack(masks), np.array(boxes, np.int32), np.array(labels), K, len(labels) - 1
 
 
+def phase_forward_b32(paths, scene, dev) -> dict:
+    """A request of 32 detections (a scene's detections repeated) through
+    prepare_batch and the estimator on each path: the whole forward on the
+    host clock around work that ends in synchronize (what a caller waits),
+    and its stages from CUDA events."""
+    rgb, masks, boxes, labels, K, _ = scene
+    take = np.arange(32) % len(labels)
+    req = (rgb, masks[take], boxes[take], labels[take], K)
+    out = {}
+    for tag, est, store in paths:
+        run = lambda: est(store, prepare_batch(*req, dev))
+        for _ in range(2):
+            run()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        batch = prepare_batch(*req, dev)
+        check(batch.crops.shape[0] == 32, "B=32 request")
+        with torch.inference_mode():
+            tar = est.ae_apply(batch.crops).to(store.ae_features.dtype).contiguous()
+            match_args = (tar, store.ae_features, batch.masks.contiguous(), store.masks,
+                          batch.labels.contiguous())
+            stages = dict(
+                prep_ms=cuda_ms(lambda: prepare_batch(*req, dev)),
+                ae_ms=cuda_ms(lambda: est.ae_apply(batch.crops)),
+                ist_ms=cuda_ms(lambda: est.ist_apply(batch.crops)),
+                matching_ms=cuda_ms(lambda: fm.fused_match_templates(*match_args)),
+                forward_device_ms=cuda_ms(lambda: est(store, batch)))
+        whole = float(np.mean(times))
+        stages["rest_ms"] = whole - sum(v for k, v in stages.items() if k != "forward_device_ms")
+        out[tag] = dict(whole_ms=whole, whole_ms_min=min(times), crops_per_s=32e3 / whole,
+                        **stages)
+        log("forward_b32", ae=tag, **{k: f"{v:.3f}" for k, v in out[tag].items()})
+    return out
+
+
+def kernel_records(record, qrec, krec, main_stats, bf16_counts, int8_counts, forwards):
+    """One entry per hand-written kernel (and per chain that ports a TPU
+    kernel): launches in the main path's runs, error against the plain
+    version, times, bound and yardstick ("library_ms" where one PyTorch call
+    computes the same function, "partial_library_ms" where it computes only
+    part of it)."""
+    mean = lambda xs: float(np.mean(xs))
+    kernels = []
+
+    def add(name, source, replaces, launches, **fields):
+        entry = dict(name=name, route="cuda", source=f"gigapose_tpu_torch/csrc/{source}",
+                     replaces=replaces, launches=launches,
+                     launches_per_forward=launches / forwards, library_ms=None)
+        entry.update(fields)
+        entry["bound_share"] = entry["bound_ms"] / entry["ms"]
+        kernels.append(entry)
+
+    pallas, qmm_py = "gigapose_tpu/ops/pallas_matching.py:69", "gigapose_tpu/ops/qmm.py"
+    for dt, key in (("bfloat16", "match_bf16"), ("float32", "match_f32")):
+        r = record[f"serving_{dt}"]
+        err = max(r["max_abs_err"], main_stats["max_abs_err"]) if dt == "bfloat16" \
+            else r["max_abs_err"]
+        add(f"fused_matching_{dt}", "fused_matching.cu", pallas, bf16_counts[key],
+            on_main_path=dt == "bfloat16", max_abs_err=err, ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            partial_library_ms=r["partial_library_ms"])
+    a = krec["attention"]
+    add("attention_core", "qmm.cu", f"{qmm_py}:235", int8_counts["attention_core"],
+        on_main_path=True, **a)
+    errs = {Q._MODE_BF16: qrec["gemm_bf16_qkv"]["max_abs_err"],
+            Q._MODE_GELU: qrec["gemm_gelu_fc1"]["max_abs_err"],
+            Q._MODE_RES: max(qrec["qmm_proj"]["max_abs_err"], qrec["qmm_fc2"]["max_abs_err"]),
+            Q._MODE_F32: qrec["qmm_K1024_N3072_ln0_res0"]["max_abs_err"]}
+    for mode, name, line, key in ((Q._MODE_BF16, "gemm_bf16", 235, "gemm_bf16"),
+                                  (Q._MODE_RES, "gemm_residual", 87, "gemm_residual"),
+                                  (Q._MODE_GELU, "gemm_gelu", 173, "gemm_gelu"),
+                                  (Q._MODE_F32, "gemm_f32", 87, "gemm_f32")):
+        rs = krec["gemm"][mode]
+        lib = [r["partial_library_ms"] for r in rs]
+        add(name, "qmm.cu", f"{qmm_py}:{line}", int8_counts[key],
+            on_main_path=int8_counts[key] > 0, max_abs_err=errs[mode],
+            ms=mean([r["ms"] for r in rs]), plain_ms=mean([r["plain_ms"] for r in rs]),
+            bound_ms=mean([r["bound_ms"] for r in rs]), bound_by=rs[0]["bound_by"],
+            partial_library_ms=mean(lib),
+            shapes={r["name"]: dict(K=r["K"], N=r["N"], ms=r["ms"], bound_ms=r["bound_ms"])
+                    for r in rs})
+    rs = krec["row_prologue"]
+    add("row_prologue", "qmm.cu", f"{qmm_py}:87", int8_counts["row_prologue"],
+        on_main_path=True, max_abs_err=max(r["max_abs_err"] for r in rs),
+        ms=mean([r["ms"] for r in rs]), plain_ms=mean([r["plain_ms"] for r in rs]),
+        bound_ms=mean([r["bound_ms"] for r in rs]), bound_by="bytes",
+        shapes=[dict(K=r["K"], ln=r["ln"], ms=r["ms"], bound_ms=r["bound_ms"]) for r in rs])
+    # the chains that port each qmm.py TPU kernel, as measured in phase 3
+    T, C, Hd, H, hd = 32 * TOKENS, 1024, 4096, 16, 64
+    vec = lambda n, k: n * k * 4
+    chain_bounds = {
+        "qmm": bound(2.0 * T * Hd * C, "int8",
+                     T * Hd * 4 + Hd * C + vec(C, 3) + 2 * T * C * 4),
+        "qmm_mlp": bound(4.0 * T * C * Hd, "int8",
+                         2 * T * C * 4 + 2 * C * Hd + vec(Hd, 2) + vec(C, 5)),
+        # int8 GEMMs plus bf16 attention, as int8-rate operations
+        "qmm_attn_block": bound(
+            8.0 * T * C * C + 4.0 * 32 * H * TOKENS * TOKENS * hd
+            * PEAK_OPS["int8"] / PEAK_OPS["bf16"], "int8",
+            2 * T * C * 4 + 4 * C * C + vec(3 * C, 2) + vec(C, 5) + TOKENS * 4),
+    }
+    qmm_errs = [v["max_abs_err"] for k, v in qrec.items() if k.startswith("qmm_K") or
+                k in ("qmm_proj", "qmm_fc2")]
+    for name, line, case, err in (
+        ("qmm", 87, "qmm_fc2", max(qmm_errs)),
+        ("qmm_mlp", 173, "qmm_mlp", qrec["qmm_mlp"]["max_abs_err"]),
+        ("qmm_attn_block", 235, f"qmm_attn_block_Np{TOKENS}_masked0",
+         max(v["max_abs_err"] for k, v in qrec.items() if k.startswith("qmm_attn_block"))),
+    ):
+        add(name, "qmm.cu", f"{qmm_py}:{line}", int8_counts[name], on_main_path=True,
+            chain=True, max_abs_err=err, ms=qrec[case]["ms"], plain_ms=qrec[case]["plain_ms"],
+            **chain_bounds[name])
+    for k in kernels:
+        log("kernel", **{f: (f"{v:.4g}" if isinstance(v, float) else v) for f, v in k.items()
+                         if f not in ("shapes", "source", "route")})
+    return kernels
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run never runs on the CPU",
@@ -526,14 +803,17 @@ def main() -> int:
     log("device", kind=repr(kind), count=torch.cuda.device_count(), nvidia_smi=repr(smi),
         torch=torch.__version__, cuda=torch.version.cuda)
     for name, path in libs.items():
-        ptxas = [ln.strip() for ln in path.with_suffix(".log").read_text().splitlines()
-                 if "registers" in ln or "spill" in ln]
+        report = ptxas_report(path.with_suffix(".log").read_text())
         log("build", source=f"{name}.cu", seconds=f"{build_s:.2f}", library=path.name,
-            ptxas=repr(" | ".join(ptxas)))
+            registers_spill_stores_loads=repr(report).replace(" ", ""))
+        spills = {k: v for k, v in report.items() if v[1] or v[2]}
+        check(not spills, f"ptxas spills registers in {spills}")
 
-    # 2. matching kernel vs plain on planted worlds; 3. int8 kernels vs plain
+    # 2. matching kernel vs plain on planted worlds; 3. int8 kernels vs plain,
+    # and each int8 kernel alone at the main path's shapes
     record = phase_kernel_vs_plain(dev)
     qrec = phase_qmm_vs_plain(dev)
+    krec = phase_int8_kernels(dev, qrec)
 
     # 4. bf16 onboarding; 5. bf16 requests (the matching kernel's path)
     cfg = EstimatorConfig(k=5, sim_threshold=0.5, patch_threshold=3, pixel_threshold=14.0,
@@ -548,8 +828,9 @@ def main() -> int:
     scenes = [make_scene(rng, templates, p, n) for p, n in zip(planted, (2, 3, 4))]
     preds, bf16_counts = serve(est, store, scenes, planted, dev, "bf16")
     forwards = len(preds)
-    check(bf16_counts == dict(fused_matching=forwards, qmm=0, qmm_mlp=0, qmm_attn_block=0),
-          f"bf16 path launches {bf16_counts} for {forwards} forwards")
+    want = dict.fromkeys(bf16_counts, 0)
+    want.update(fused_matching=forwards, match_bf16=forwards)
+    check(bf16_counts == want, f"bf16 path launches {bf16_counts} for {forwards} forwards")
 
     # the matching kernel on the main path's own features (not counted above);
     # random ViT features have near-equal similarities, so idx may differ on
@@ -567,35 +848,20 @@ def main() -> int:
     depth = len(est8.ae_net.blocks)
     preds8, int8_counts = serve(est8, store8, scenes, planted, dev, "int8")
     want = dict(fused_matching=forwards, qmm=2 * depth * forwards,
-                qmm_mlp=depth * forwards, qmm_attn_block=depth * forwards)
+                qmm_mlp=depth * forwards, qmm_attn_block=depth * forwards,
+                match_bf16=forwards, match_f32=0, row_prologue=4 * depth * forwards,
+                attention_core=depth * forwards, gemm_f32=0,
+                gemm_residual=2 * depth * forwards, gemm_gelu=depth * forwards,
+                gemm_bf16=depth * forwards)
     check(int8_counts == want, f"int8 path launches {int8_counts}, expected {want}")
 
-    # 7. the int8 AE's wiring, card against CPU; 8. int8 against bf16
+    # 7. the int8 AE's wiring, card against CPU; 8. int8 against bf16;
+    # 9. the whole forward at B=32 on both paths
     phase_int8_wiring(est8, preds8[0][1])
     phase_int8_vs_bf16(est, est8, preds8[0][1], dev)
+    phase_forward_b32([("bf16", est, store), ("int8", est8, store8)], scenes[2], dev)
 
-    serving = record["serving_bfloat16"]
-    kernels = [dict(
-        name="fused_matching", route="cuda",
-        source="gigapose_tpu_torch/csrc/fused_matching.cu",
-        replaces="gigapose_tpu/ops/pallas_matching.py:69",
-        launches=bf16_counts["fused_matching"],
-        max_abs_err=max(serving["max_abs_err"], stats["max_abs_err"]),
-        ms=serving["ms"], plain_ms=serving["plain_ms"],
-    )]
-    qmm_errs = [v["max_abs_err"] for k, v in qrec.items() if k.startswith("qmm_K") or
-                k in ("qmm_proj", "qmm_fc2")]
-    for name, line, case, err in (
-        ("qmm", 87, "qmm_fc2", max(qmm_errs)),
-        ("qmm_mlp", 173, "qmm_mlp", qrec["qmm_mlp"]["max_abs_err"]),
-        ("qmm_attn_block", 235, f"qmm_attn_block_Np{TOKENS}_masked0",
-         max(v["max_abs_err"] for k, v in qrec.items() if k.startswith("qmm_attn_block"))),
-    ):
-        kernels.append(dict(
-            name=name, route="cuda", source="gigapose_tpu_torch/csrc/qmm.cu",
-            replaces=f"gigapose_tpu/ops/qmm.py:{line}", launches=int8_counts[name],
-            max_abs_err=err, ms=qrec[case]["ms"], plain_ms=qrec[case]["plain_ms"],
-        ))
+    kernels = kernel_records(record, qrec, krec, stats, bf16_counts, int8_counts, forwards)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

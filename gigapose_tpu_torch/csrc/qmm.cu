@@ -1,7 +1,8 @@
 // W8A8 int8 serving kernels for Hopper (sm_90a), bound with ctypes through
 // plain C entry points (gp_qmm_quant_rows, gp_qmm_gemm, gp_qmm_attention).
 // Built by gigapose_tpu_torch/kernels/build.py, without --use_fast_math: the
-// divisions, square root, exp and tanh are the IEEE / accurate forms, and
+// divisions (but for the attention's p, see there), square root, exp and
+// tanh are the IEEE / accurate forms, and
 // every product and sum that the plain PyTorch version rounds separately is
 // written with __fmul_rn / __fadd_rn so that nvcc cannot contract it to FMA.
 //
@@ -17,18 +18,19 @@
 // so here each is a chain of kernels whose intermediates (int8 rows, f32 row
 // scales, bf16 qkv, f32 context and hidden) pass through device memory.
 //
-// What bounds them on an H100, at the ViT-L serving shape (T = 32 x 257
-// tokens, C = 1024, hidden 4096): the four matmuls of a block are
-// 2 * T * C * 12C = 207 GOP, which the int8 tensor cores (1,979 TOP/s dense)
-// could do in 0.1 ms; the intermediates and the residual stream are ~0.7 GB
-// of traffic per block (0.2 ms at 3.35 TB/s), most of it the f32 hidden.
-// This first version issues the matmuls as warp-level mma.sync (m16n8k32
-// s8 -> s32) from shared-memory tiles loaded with cp.async, which reaches a
-// fraction of the wgmma rate. The attention core (8.7 GFLOP per block at
-// B=32) runs one CTA per SM for its 180 KB of shared memory and does not
-// overlap its phases; on an H100 it takes about a third of the int8 AE's
-// time at B=32. wgmma / TMA tiles, keeping the hidden and the qkv on chip,
-// and a denser attention core are later work.
+// What bounds them on an H100 SXM, at the ViT-L serving shape (T = 32 x 257
+// tokens, C = 1024, 16 heads of 64, hidden 4096):
+// - the GEMMs: the four matmuls of a block are 2 * T * C * 12C = 207 GOP,
+//   0.1 ms on the int8 tensor cores (1,979 TOP/s dense); with their inputs
+//   and outputs in device memory the bytes bound each at 23-44 us (3.35
+//   TB/s). They issue warp-level mma.sync (m16n8k32 s8 -> s32) from
+//   shared-memory tiles loaded with cp.async, a fraction of the wgmma rate;
+//   wgmma / TMA tiles are the next redesign.
+// - quant_rows: bytes only (one f32 row in, int8 row and scale out).
+// - attention: bytes. Per block 50.5 MB of bf16 qkv in and 33.7 MB of f32
+//   context out need 25 us; its 8.7 GFLOP need 9 us on the bf16 tensor
+//   cores. So each head's K and V go into shared memory once, and the score
+//   rows never leave registers.
 //
 // Kernels:
 // - quant_rows: one block of 256 threads per row. [Two-pass LayerNorm:
@@ -42,14 +44,21 @@
 //   of 64 x 32, int32 accumulators. The epilogue is exact int32 -> f32, then
 //   acc * xs * ws + b in that order, and per mode: f32 out; f32 res + ls * y;
 //   f32 tanh-GELU; bf16 out.
-// - attention: one CTA per (64-query tile, head, batch element). Q tile, all
-//   keys and V^T (bf16) and the 64 x Nk f32 score rows live in shared memory
-//   (180 KB at Nk = 320). s = (q . k^T, f32 accumulate via bf16 mma.sync)
-//   * hd^-1/2 + key_bias; row max; exp(s - max); divided by the row sum;
-//   rounded to bf16 in place; then p . v, f32 accumulate. No online softmax:
-//   p is rounded to bf16 after the division, where the reference rounds it.
-//   Keys past Np are zero and get p = 0; masked keys (-1e9) give exp = 0
-//   exactly, so padded tokens never reach real rows.
+// - attention: one CTA per (head, batch element), the head fastest, with
+//   as many warps (at most 10) as take its 16-query blocks in two rounds. K and V of the head (bf16, Np rounded up to 16 keys, 16-byte
+//   rows padded to 144 bytes) are copied into shared memory once with
+//   cp.async: 93 KB at Np = 320, so two CTAs share an SM. Each warp takes
+//   16-query blocks, its q fragments in registers straight from device
+//   memory, and makes three passes over the keys in blocks of 16, each
+//   recomputing s = (q . k^T, bf16 mma.sync m16n8k16, f32 accumulate, K by
+//   ldmatrix) * hd^-1/2 + key_bias: the row max; the row sum of
+//   exp(s - max), in f64 rounded once to f32 as the reference sums it; then p = bf16(exp(s - max) / sum), packed from the
+//   accumulator registers into the A fragment of p . v (V by
+//   ldmatrix.trans), f32 accumulate. The output is never rescaled: this is
+//   not an online softmax, and p is rounded to bf16 after the division by
+//   the full row sum, where the reference rounds it. Keys past Np get a
+//   -inf bias and masked keys (-1e9) give exp = 0 exactly, so padded tokens
+//   never reach real rows.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -288,163 +297,187 @@ int launch_gemm(const void* xq, const void* xs, const void* wt, const void* ws,
 
 // ----------------------------------------------------------------- attention
 
-constexpr int kAttnThreads = 256;
-constexpr int kQTile = 64;
+constexpr int kAttnMaxWarps = 10;  // 16-query blocks of Np <= 320 in at most two rounds
 constexpr int kMaxKeys = 320;
+constexpr int kHD = 64;
+constexpr int kKS = kHD + 8;  // K / V row stride in bf16: 144 bytes, conflict-free ldmatrix
 
-// smem: S f32 [64][Nk + 4] | Q bf16 [64][HD + 8] | K bf16 [Nk][HD + 8]
-//       | V^T bf16 [HD][Nk + 8]; the paddings make every fragment read
-//       conflict-free (row strides of 4 mod 32 words) and keep rows 16-byte
-//       aligned. p is written as bf16 over the first half of each S row.
-size_t attn_smem_bytes(int hd, int nk) {
-  return (size_t)kQTile * (nk + 4) * 4 + (size_t)(kQTile + nk) * (hd + 8) * 2 +
-         (size_t)hd * (nk + 8) * 2;
+// smem: K bf16 [Nk][kKS] | V bf16 [Nk][kKS] | key bias f32 [Nk], where Nk
+// is Np rounded up to 16 keys; 93,440 bytes at Nk = 320, two CTAs per SM
+size_t attn_smem_bytes(int nk) { return (size_t)nk * kKS * 2 * 2 + (size_t)nk * 4; }
+
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
 }
 
-template <int HD>
-__global__ void __launch_bounds__(kAttnThreads) attention_kernel(
+// (lo, hi) -> bf16x2 with lo at the lower address, as an mma operand
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<unsigned*>(&v);
+}
+
+// s for the warp's 16 queries and keys key0 .. key0 + 15: s[n][e] is row
+// g + 8 (e >> 1), key key0 + 8 n + 2 tig + (e & 1), as the f32 accumulator
+// of two m16n8k16 tiles; s = (q . k^T) * scale + key_bias in that order
+__device__ __forceinline__ void scores16(float (&s)[2][4], const unsigned (&qa)[4][4],
+                                         uint32_t k_s, const float* bias_s, int key0,
+                                         float scale, int lane) {
+  const int tig = lane & 3;
+#pragma unroll
+  for (int n = 0; n < 2; ++n) {
+    s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // head columns 32 h .. 32 h + 31: two k16 steps
+      unsigned kb[4];
+      ldsm_x4(kb, k_s + ((key0 + 8 * n + (lane & 7)) * kKS + 32 * h + (lane >> 3) * 8) * 2);
+      mma_bf16(s[n], qa[2 * h], kb[0], kb[1]);
+      mma_bf16(s[n], qa[2 * h + 1], kb[2], kb[3]);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      s[n][e] = __fadd_rn(__fmul_rn(s[n][e], scale), bias_s[key0 + 8 * n + 2 * tig + (e & 1)]);
+  }
+}
+
+__global__ void __launch_bounds__(kAttnMaxWarps * 32, 2) attention_kernel(
     const __nv_bfloat16* __restrict__ qkv, const float* __restrict__ key_bias,
     float* __restrict__ ctx, int Np, int H, int Nk, float scale) {
-  constexpr int QS = HD + 8;
-  constexpr int kVec = 8;  // bf16 per 16-byte load
-  constexpr int kChunks = HD / kVec;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int SS = Nk + 4, VS = Nk + 8;
-  float* S = reinterpret_cast<float*>(smem_raw);
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(S + kQTile * SS);
-  __nv_bfloat16* Ks = Qs + kQTile * QS;
-  __nv_bfloat16* Vt = Ks + Nk * QS;
+  const uint32_t k_s = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t v_s = k_s + Nk * kKS * 2;
+  float* bias_s = reinterpret_cast<float*>(smem_raw + 2 * Nk * kKS * 2);
 
-  const int q0 = blockIdx.x * kQTile, h = blockIdx.y, b = blockIdx.z;
-  const int C = H * HD;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int C = H * kHD;
   const size_t ld = 3 * (size_t)C;
-  const __nv_bfloat16* base = qkv + (size_t)b * Np * ld + h * HD;
+  const __nv_bfloat16* base = qkv + (size_t)b * Np * ld + h * kHD;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, tig = lane & 3;
+  const int nthreads = blockDim.x;
 
-  // Q tile rows, then all K rows; zero past Np
-  for (int i = tid; i < (kQTile + Nk) * kChunks; i += kAttnThreads) {
-    const int r = i / kChunks, c = (i % kChunks) * kVec;
-    const bool is_q = r < kQTile;
-    const int tok = is_q ? q0 + r : r - kQTile;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (tok < Np) v = *reinterpret_cast<const uint4*>(base + tok * ld + (is_q ? 0 : C) + c);
-    *reinterpret_cast<uint4*>(Qs + r * QS + c) = v;  // Ks follows Qs: row r - 64 of K
+  // K and V of this head, once: 16-byte rows, zero past Np; padded keys
+  // get a -inf bias, so exp gives them p = 0
+  for (int i = tid; i < 2 * Nk * 8; i += nthreads) {
+    const int which = i >= Nk * 8;  // 0: K, 1: V
+    const int r = i - which * Nk * 8, key = r >> 3, ch = r & 7;
+    const bool ok = key < Np;
+    cp_async16(smem_raw + which * Nk * kKS * 2 + (key * kKS + ch * 8) * 2,
+               ok ? base + key * ld + (1 + which) * C + ch * 8 : base, ok ? 16 : 0);
   }
-  // V transposed: Vt[d][key]
-  for (int i = tid; i < Nk * kChunks; i += kAttnThreads) {
-    const int key = i / kChunks, c = (i % kChunks) * kVec;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (key < Np) v = *reinterpret_cast<const uint4*>(base + key * ld + 2 * C + c);
-    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
-#pragma unroll
-    for (int j = 0; j < kVec; ++j) Vt[(c + j) * VS + key] = e[j];
-  }
+  cp_async_commit();
+  for (int i = tid; i < Nk; i += nthreads) bias_s[i] = i < Np ? key_bias[i] : -INFINITY;
+  cp_async_wait<0>();
   __syncthreads();
 
-  const int rb = warp & 3;    // 16-row block of the query tile
-  const int half = warp >> 2;  // which half of the key tiles / head columns
-  {
-    unsigned af[HD / 16][4];
+  for (int q0 = warp * 16; q0 < Np; q0 += nthreads / 2) {  // nthreads / 32 warps x 16 rows
+    unsigned qa[4][4];  // A fragments of q for the four k16 steps over the head
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      const __nv_bfloat16* p = Qs + (rb * 16 + g) * QS + kk * 16 + tig * 2;
-      af[kk][0] = ld32(p);
-      af[kk][1] = ld32(p + 8 * QS);
-      af[kk][2] = ld32(p + 8);
-      af[kk][3] = ld32(p + 8 * QS + 8);
-    }
-    for (int nt = half; nt < Nk / 8; nt += 2) {
-      float c[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        const __nv_bfloat16* p = Ks + (nt * 8 + g) * QS + kk * 16 + tig * 2;
-        mma_bf16(c, af[kk], ld32(p), ld32(p + 8));
-      }
-      float* s = S + (rb * 16 + g) * SS + nt * 8 + tig * 2;
-      s[0] = c[0];
-      s[1] = c[1];
-      s[8 * SS] = c[2];
-      s[8 * SS + 1] = c[3];
-    }
-  }
-  __syncthreads();
-
-  // softmax per row, one warp per row; p overwrites the row as bf16
-  constexpr int kCols = kMaxKeys / 32;
-  for (int r = warp; r < kQTile; r += kAttnThreads / 32) {
-    float* srow = S + r * SS;
-    float v[kCols];
-    float m = -INFINITY;
-#pragma unroll
-    for (int i = 0; i < kCols; ++i) {
-      const int c = lane + 32 * i;
-      v[i] = -INFINITY;
-      if (c < Np) {
-        v[i] = __fadd_rn(__fmul_rn(srow[c], scale), key_bias[c]);
-        m = fmaxf(m, v[i]);
-      }
-    }
-    m = warp_max(m);
-    float sum = 0.f;
-#pragma unroll
-    for (int i = 0; i < kCols; ++i) {
-      v[i] = lane + 32 * i < Np ? expf(__fsub_rn(v[i], m)) : 0.f;
-      sum += v[i];
-    }
-    sum = warp_sum(sum);
-    __syncwarp();  // every lane has read the row before any lane overwrites it
-    __nv_bfloat16* prow = reinterpret_cast<__nv_bfloat16*>(srow);
-#pragma unroll
-    for (int i = 0; i < kCols; ++i) {
-      const int c = lane + 32 * i;
-      if (c < Nk) prow[c] = __float2bfloat16_rn(v[i] / sum);
-    }
-  }
-  __syncthreads();
-
-  // ctx = p . v: each warp 16 rows x HD/2 columns
-  {
-    constexpr int kNT = HD / 16;  // n8 tiles in HD/2 columns
-    const __nv_bfloat16* P = reinterpret_cast<const __nv_bfloat16*>(S);
-    const int PS = 2 * SS;
-    float acc[kNT][4];
-#pragma unroll
-    for (int j = 0; j < kNT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-    for (int kk = 0; kk < Nk; kk += 16) {
-      unsigned af[4];
-      const __nv_bfloat16* p = P + (rb * 16 + g) * PS + kk + tig * 2;
-      af[0] = ld32(p);
-      af[1] = ld32(p + 8 * PS);
-      af[2] = ld32(p + 8);
-      af[3] = ld32(p + 8 * PS + 8);
-#pragma unroll
-      for (int j = 0; j < kNT; ++j) {
-        const __nv_bfloat16* vp = Vt + (half * (HD / 2) + j * 8 + g) * VS + kk + tig * 2;
-        mma_bf16(acc[j], af, ld32(vp), ld32(vp + 8));
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kNT; ++j)
+    for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int r = q0 + rb * 16 + g + (e >> 1) * 8;
-        const int d = half * (HD / 2) + j * 8 + tig * 2 + (e & 1);
-        if (r < Np) ctx[((size_t)b * Np + r) * C + h * HD + d] = acc[j][e];
+        const int row = q0 + g + (e & 1) * 8;
+        qa[kk][e] = row < Np ? ld32(base + row * ld + kk * 16 + (e >> 1) * 8 + tig * 2) : 0u;
+      }
+
+    // pass 1: row maxima (rows g and g + 8)
+    float m0 = -INFINITY, m1 = -INFINITY;
+    for (int key0 = 0; key0 < Nk; key0 += 16) {
+      float s[2][4];
+      scores16(s, qa, k_s, bias_s, key0, scale, lane);
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        m0 = fmaxf(m0, fmaxf(s[n][0], s[n][1]));
+        m1 = fmaxf(m1, fmaxf(s[n][2], s[n][3]));
+      }
+    }
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
+      m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
+    }
+    // pass 2: row sums of exp(s - max), in f64 and rounded once to f32, as
+    // the reference sums them: the sum's order then does not show
+    double d0 = 0.0, d1 = 0.0;
+    for (int key0 = 0; key0 < Nk; key0 += 16) {
+      float s[2][4];
+      scores16(s, qa, k_s, bias_s, key0, scale, lane);
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          d0 += (double)expf(__fsub_rn(s[n][e], m0));
+          d1 += (double)expf(__fsub_rn(s[n][2 + e], m1));
+        }
+    }
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      d0 += __shfl_xor_sync(0xffffffffu, d0, off);
+      d1 += __shfl_xor_sync(0xffffffffu, d1, off);
+    }
+    const float l0 = (float)d0, l1 = (float)d1;
+    // pass 3: p = bf16(exp(s - max) / sum), straight from the accumulator
+    // registers into the A fragment of p . v. The quotient is e times the
+    // correctly rounded reciprocal, corrected once with an fma (Markstein):
+    // the IEEE quotient for all but rare inputs, and those are one f32 ulp
+    // off, far below the bf16 rounding that follows
+    const float r0 = __frcp_rn(l0), r1 = __frcp_rn(l1);
+    auto div = [](float e, float l, float r) {
+      const float q = __fmul_rn(e, r);
+      return __fmaf_rn(__fmaf_rn(-q, l, e), r, q);
+    };
+    float o[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+    for (int key0 = 0; key0 < Nk; key0 += 16) {
+      float s[2][4];
+      scores16(s, qa, k_s, bias_s, key0, scale, lane);
+      unsigned pa[4];
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        pa[2 * n] = pack_bf16(div(expf(__fsub_rn(s[n][0], m0)), l0, r0),
+                              div(expf(__fsub_rn(s[n][1], m0)), l0, r0));
+        pa[2 * n + 1] = pack_bf16(div(expf(__fsub_rn(s[n][2], m1)), l1, r1),
+                                  div(expf(__fsub_rn(s[n][3], m1)), l1, r1));
+      }
+#pragma unroll
+      for (int jp = 0; jp < 4; ++jp) {  // head columns 16 jp .. 16 jp + 15
+        unsigned vb[4];
+        ldsm_x4_trans(vb, v_s + ((key0 + (lane & 7) + ((lane >> 3) & 1) * 8) * kKS +
+                                 (2 * jp + (lane >> 4)) * 8) * 2);
+        mma_bf16(o[2 * jp], pa, vb[0], vb[1]);
+        mma_bf16(o[2 * jp + 1], pa, vb[2], vb[3]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = q0 + g + half * 8;
+        if (row < Np)
+          *reinterpret_cast<float2*>(ctx + ((size_t)b * Np + row) * C + h * kHD + j * 8 +
+                                     tig * 2) = make_float2(o[j][2 * half], o[j][2 * half + 1]);
       }
   }
 }
 
-template <int HD>
 int launch_attention(const void* qkv, const void* key_bias, void* ctx, int B, int Np, int H,
                      float scale, cudaStream_t stream) {
-  const int nk = (Np + 63) / 64 * 64;
-  const size_t smem = attn_smem_bytes(HD, nk);
+  const int nk = (Np + 15) / 16 * 16;
+  const size_t smem = attn_smem_bytes(nk);
   cudaError_t err = cudaFuncSetAttribute(
-      attention_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((Np + kQTile - 1) / kQTile, H, B);
-  attention_kernel<HD><<<grid, kAttnThreads, smem, stream>>>(
+  // as many warps as split the 16-query blocks into two rounds: a third
+  // round for one block (Np = 257 has 17) would idle the other warps
+  const int warps = min(kAttnMaxWarps, ((Np + 15) / 16 + 1) / 2);
+  attention_kernel<<<dim3(H, B), warps * 32, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(qkv), static_cast<const float*>(key_bias),
       static_cast<float*>(ctx), Np, H, nk, scale);
   return (int)cudaGetLastError();
@@ -506,6 +539,6 @@ extern "C" int gp_qmm_attention(const void* qkv, const void* key_bias, void* ctx
   if (B <= 0 || B > 65535 || H <= 0 || H > 65535 || Np <= 0 || Np > kMaxKeys)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (hd != 64) return (int)cudaErrorInvalidValue;
-  return launch_attention<64>(qkv, key_bias, ctx, B, Np, H, scale, s);
+  if (hd != kHD) return (int)cudaErrorInvalidValue;
+  return launch_attention(qkv, key_bias, ctx, B, Np, H, scale, s);
 }

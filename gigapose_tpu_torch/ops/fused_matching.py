@@ -13,9 +13,13 @@ Both inputs are L2-normalized already (the AE output and the store are) and
 are not renormalized. Outputs: sim_avg (B, V) f32, idx_t2s (B, V, P) i32,
 score_t2s (B, V, P) f32, valid (B, V, P) i32.
 
-Dispatch is by device and nothing else: CUDA tensors launch the kernel (or
-raise on what it does not take), CPU tensors take `match_scores_plain`.
-`fused_match_scores.launches` counts kernel launches.
+Dispatch is by device and nothing else: CUDA tensors launch a kernel (or
+raise on what it does not take), CPU tensors take `match_scores_plain`. On
+the card the store's dtype picks one of two hand-written kernels: a bf16
+store the tensor-core (wgmma) kernel, which takes C a multiple of 8; an f32
+store the CUDA-core kernel, which keeps full f32 inputs.
+`fused_match_scores.launches` counts kernel launches, and
+`fused_match_scores.launches_by_dtype` counts them per kernel.
 """
 
 from __future__ import annotations
@@ -28,8 +32,9 @@ import torch
 
 from gigapose_tpu_torch.ops.matching import MatchResult, select_top_k
 
-# the kernel keeps one similarity strip of 64 template rows x MAX_PATCHES query
-# columns in shared memory (csrc/fused_matching.cu)
+# both kernels hold all query patches of a detection at once: a 64-row strip
+# of MAX_PATCHES columns in shared memory (f32) or a 64 x 256 wgmma
+# accumulator per warpgroup (bf16) (csrc/fused_matching.cu)
 MAX_PATCHES = 256
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -130,11 +135,15 @@ def _launch(tar_feat, store_feats, tar_mask, store_masks, labels,
                          f"labels {tuple(labels.shape)}")
     if not 0 < P <= MAX_PATCHES:
         raise ValueError(f"the kernel takes 1..{MAX_PATCHES} patches, got P={P}")
+    if tar_feat.dtype == torch.bfloat16 and C % 8:
+        raise ValueError(f"the bf16 kernel reads 16-byte rows: C={C} must be a multiple of 8")
     for name, t in (("tar_feat", tar_feat), ("store_feats", store_feats),
                     ("tar_mask", tar_mask), ("store_masks", store_masks),
                     ("labels", labels)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if tar_feat.data_ptr() % 16 or store_feats.data_ptr() % 16:
+        raise ValueError("features must start on a 16-byte boundary")
 
     sim_avg = torch.empty((B, V), dtype=torch.float32, device=dev)
     idx = torch.empty((B, V, P), dtype=torch.int32, device=dev)
@@ -155,6 +164,7 @@ def _launch(tar_feat, store_feats, tar_mask, store_masks, labels,
     if err != 0:
         raise RuntimeError(f"fused matching kernel launch failed: CUDA error {err}")
     fused_match_scores.launches += 1
+    fused_match_scores.launches_by_dtype[tar_feat.dtype] += 1
     return sim_avg, idx, score, valid
 
 
@@ -182,6 +192,7 @@ def fused_match_scores(
 
 
 fused_match_scores.launches = 0
+fused_match_scores.launches_by_dtype = {dtype: 0 for dtype in _DTYPE_CODES}
 
 
 def fused_match_templates(

@@ -28,7 +28,9 @@ f32.
 
 Dispatch is by device and nothing else: CUDA tensors launch the kernels (or
 raise on what they do not take), CPU tensors take the plain versions. Each
-wrapper's `.launches` counts its calls that launched kernels.
+wrapper's `.launches` counts its calls that launched kernels; the three
+kernels' own launches are counted by `_quantize_rows.launches`,
+`_gemm.launches` (a dict by epilogue mode) and `_attention.launches`.
 """
 
 from __future__ import annotations
@@ -40,8 +42,8 @@ from typing import Optional, Tuple
 import torch
 
 _LN_EPS = 1e-6
-# csrc/qmm.cu: the attention core keeps the score rows of all keys of one
-# batch element in shared memory, for the head width of ViT-S/B/L/g
+# csrc/qmm.cu: the attention core keeps K and V of one head of one batch
+# element in shared memory, for the head width of ViT-S/B/L/g
 MAX_TOKENS = 320
 HEAD_DIM = 64
 _MODE_F32, _MODE_RES, _MODE_GELU, _MODE_BF16 = 0, 1, 2, 3
@@ -200,7 +202,11 @@ def _quantize_rows(x, ln_gamma=None, ln_beta=None):
     xs = torch.empty((T,), dtype=torch.float32, device=x.device)
     _call(_lib().gp_qmm_quant_rows, x.data_ptr(), _X_DTYPES[x.dtype], _ptr(ln_gamma),
           _ptr(ln_beta), xq.data_ptr(), xs.data_ptr(), T, K, what="row quantization")
+    _quantize_rows.launches += 1
     return xq, xs
+
+
+_quantize_rows.launches = 0
 
 
 def _gemm(xq, xs, wq, ws, bias, out, mode, residual=None, layerscale=None):
@@ -209,6 +215,10 @@ def _gemm(xq, xs, wq, ws, bias, out, mode, residual=None, layerscale=None):
     _call(_lib().gp_qmm_gemm, xq.data_ptr(), xs.data_ptr(), wq.data_ptr(), ws.data_ptr(),
           bias.data_ptr(), _ptr(residual), _ptr(layerscale), out.data_ptr(), T, N, K, mode,
           what="int8 GEMM")
+    _gemm.launches[mode] += 1
+
+
+_gemm.launches = {mode: 0 for mode in (_MODE_F32, _MODE_RES, _MODE_GELU, _MODE_BF16)}
 
 
 def _attention(qkv, key_bias, batch, num_heads):
@@ -219,7 +229,11 @@ def _attention(qkv, key_bias, batch, num_heads):
     ctx = torch.empty((T, C), dtype=torch.float32, device=qkv.device)
     _call(_lib().gp_qmm_attention, qkv.data_ptr(), key_bias.data_ptr(), ctx.data_ptr(),
           batch, T // batch, num_heads, hd, float(hd ** -0.5), what="attention")
+    _attention.launches += 1
     return ctx
+
+
+_attention.launches = 0
 
 
 def _check_x(x: torch.Tensor, what: str) -> str:

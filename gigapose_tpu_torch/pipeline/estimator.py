@@ -219,9 +219,19 @@ class GigaPoseEstimator:
         config: EstimatorConfig = EstimatorConfig(),
         ist_descriptor_size: int = 256,
         compute_dtype: Optional[str] = None,
-        device: torch.device = torch.device("cpu"),
+        device: Optional[Union[torch.device, str]] = None,
     ) -> "GigaPoseEstimator":
-        """Both nets with seeded random weights, in eval mode on `device`."""
+        """Both nets with seeded random weights, in eval mode on `device`:
+        the card (cuda:0) unless the caller names another device, such as
+        "cpu". With no card and no device given it raises; it never moves
+        to the CPU on its own."""
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "GigaPoseEstimator.create runs on the CUDA card by default and "
+                    "none is available; pass device='cpu' to run on the CPU"
+                )
+            device = torch.device("cuda", 0)
         set_f32_matmul_precision()
         gen = torch.Generator().manual_seed(seed)
         ae_net = init_random_(AENet(model_name, compute_dtype=compute_dtype), gen)

@@ -6,8 +6,10 @@ runs on a machine with PyTorch and the CUDA toolkit only:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
-idx_t2s / valid / top-k ids are exact; scores agree to atol 1e-4 (f32 sums
-of C exact products in another order). The planted worlds keep every
+Both kernels are held here: a bf16 store runs the tensor-core (wgmma)
+kernel, an f32 store the CUDA-core kernel. idx_t2s / valid / top-k ids are
+exact; scores agree to atol 1e-4 (f32 sums of C exact products in another
+order). The planted worlds keep every
 non-planted similarity far below the threshold, so no near-tie can flip an
 argmax; exact 0.0 ties are the common case and must resolve to index 0.
 """
@@ -29,12 +31,14 @@ def dev():
     return torch.device("cuda", 0)
 
 
-def _world(seed, B, O, V, npat, C, planted=True):
+def _world(seed, B, O, V, npat, C, planted=True, labels=None):
     rng = np.random.default_rng(seed)
     P = npat * npat
     tar = rng.standard_normal((B, P, C), dtype=np.float32)
     store = rng.standard_normal((O, V, P, C), dtype=np.float32)
-    labels = rng.integers(0, O, size=B).astype(np.int32)
+    if labels is None:
+        labels = rng.integers(0, O, size=B)
+    labels = np.asarray(labels, dtype=np.int32)
     if planted:
         for b in range(B):
             take = rng.integers(0, P, size=P // 2)
@@ -56,9 +60,11 @@ def _to(dev, world, dtype):
 
 def _assert_same(args, npat, patch_threshold=3, sim_threshold=0.5, k=5):
     kw = dict(sim_threshold=sim_threshold, patch_threshold=patch_threshold, num_patches=npat)
-    before = fm.fused_match_scores.launches
+    counts = fm.fused_match_scores.launches_by_dtype
+    before = (fm.fused_match_scores.launches, counts[args[0].dtype])
     got = fm.fused_match_scores(*args, **kw)
-    assert fm.fused_match_scores.launches == before + 1
+    assert (fm.fused_match_scores.launches, counts[args[0].dtype]) == (before[0] + 1,
+                                                                        before[1] + 1)
     want = fm.match_scores_plain(*args, **kw)
     torch.cuda.synchronize()
     torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-4)
@@ -120,3 +126,43 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
     big = _to(dev, _world(6, B=1, O=1, V=1, npat=17, C=8), torch.float32)
     with pytest.raises(ValueError, match="patches"):
         fm.fused_match_scores(*big, num_patches=17)
+
+
+# (B, O, labels): one object for all, one object each, unsorted repeats
+LABELS = {"equal": (4, 3, [1, 1, 1, 1]), "distinct": (4, 4, [2, 0, 3, 1]),
+          "repeats": (5, 3, [2, 0, 2, 1, 0])}
+
+
+@pytest.mark.parametrize("labels", sorted(LABELS))
+@pytest.mark.parametrize("C", [64, 384, 1000, 1024])
+@pytest.mark.parametrize("npat", [4, 10, 16])  # P = 16, 100, 256
+def test_bf16_kernel_shapes_and_labels(dev, npat, C, labels):
+    """The wgmma kernel at ragged P (< 256) and ragged C (not a multiple of
+    its 64-channel stage), with detections sharing views or not."""
+    B, O, lab = LABELS[labels]
+    world = _world(7, B=B, O=O, V=5, npat=npat, C=C, labels=lab)
+    _assert_same(_to(dev, world, torch.bfloat16), npat)
+
+
+def test_tie_world_bf16(dev):
+    """The exact-0 tie world through the wgmma kernel: all-zero columns and
+    rows resolve to index 0."""
+    world = _world(2, B=4, O=2, V=30, npat=16, C=128, planted=False)
+    want = _assert_same(_to(dev, world, torch.bfloat16), 16)
+    assert float((want[0] == 0).float().mean()) > 0.9
+    assert int((want[1] == 0).sum()) > 0.9 * want[1].numel()
+
+
+def test_bf16_wrapper_refusals(dev):
+    args = list(_to(dev, _world(8, B=2, O=1, V=3, npat=4, C=32), torch.bfloat16))
+    mixed = [args[0], args[1].float()] + args[2:]
+    with pytest.raises(TypeError):
+        fm.fused_match_scores(*mixed, num_patches=4)
+    big = _to(dev, _world(9, B=1, O=1, V=1, npat=17, C=8), torch.bfloat16)
+    with pytest.raises(ValueError, match="patches"):
+        fm.fused_match_scores(*big, num_patches=17)
+    odd = _to(dev, _world(10, B=2, O=1, V=2, npat=4, C=36), torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fm.fused_match_scores(*odd, num_patches=4)
+    # an f32 store takes any C
+    _assert_same(_to(dev, _world(10, B=2, O=1, V=2, npat=4, C=36), torch.float32), 4)

@@ -187,6 +187,24 @@ def test_attention_core_matches_plain(dev, B, Np, C, H, masked):
     _assert_rel(got, want, CORE)
 
 
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("Np", [1, 17, 64, 65, 257, 320])
+def test_attention_core_token_counts(dev, Np, masked):
+    """The attention core at token counts on both sides of its 16-key and
+    16-query blocks, with every third key masked or none."""
+    B, C, H = 2, 128, 2
+    keys = torch.arange(Np, device=dev)
+    kb = torch.where((keys % 3 == 1) & masked, -1e9, 0.0).reshape(1, Np)
+    x, qwq, qws, qb, _, _, _, g, be, _, _ = _attn_args(dev, B, Np, C, 0)
+    qkv = Q.qmm_plain(x, qwq, qws, qb, g, be).to(torch.bfloat16)
+    before = Q._attention.launches
+    got = Q._attention(qkv, kb, B, H)
+    assert Q._attention.launches == before + 1
+    want = Q.attention_plain(qkv, kb, B, H)
+    torch.cuda.synchronize()
+    _assert_rel(got, want, CORE)
+
+
 @pytest.mark.parametrize("B,Np,C,H,masked", ATTN_SHAPES)
 def test_qmm_attn_block_matches_plain(dev, B, Np, C, H, masked):
     args = _attn_args(dev, B, Np, C, masked)

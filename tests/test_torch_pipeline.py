@@ -206,9 +206,12 @@ def test_coarse_slice_matches_jax(fused):
 
 
 def test_estimator_create_is_seeded():
-    a = test.GigaPoseEstimator.create("vit_tiny_test", seed=3, ist_descriptor_size=32)
-    b = test.GigaPoseEstimator.create("vit_tiny_test", seed=3, ist_descriptor_size=32)
-    c = test.GigaPoseEstimator.create("vit_tiny_test", seed=4, ist_descriptor_size=32)
+    a = test.GigaPoseEstimator.create("vit_tiny_test", seed=3, ist_descriptor_size=32,
+                                        device="cpu")
+    b = test.GigaPoseEstimator.create("vit_tiny_test", seed=3, ist_descriptor_size=32,
+                                        device="cpu")
+    c = test.GigaPoseEstimator.create("vit_tiny_test", seed=4, ist_descriptor_size=32,
+                                        device="cpu")
     pa, pb, pc = (dict(e.ae_net.named_parameters()) for e in (a, b, c))
     w = "vit.blocks.0.attn.qkv.weight"
     assert torch.equal(pa[w], pb[w]) and not torch.equal(pa[w], pc[w])
@@ -222,3 +225,17 @@ def test_estimator_create_is_seeded():
     with pytest.raises(NotImplementedError, match="ROADMAP A11"):
         a.quantize_serving(ist=True)
     assert type(a.quantize_serving().ae_net).__name__ == "AENetInt8"
+
+
+def test_estimator_create_defaults_to_the_card():
+    """With no device, create() puts both nets on cuda:0; with no card it
+    raises rather than fall back to the CPU (decided here, not at import)."""
+    kw = dict(seed=0, ist_descriptor_size=32)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            test.GigaPoseEstimator.create("vit_tiny_test", **kw)
+        return
+    est = test.GigaPoseEstimator.create("vit_tiny_test", **kw)
+    cuda0 = torch.device("cuda", 0)
+    for net in (est.ae_net, est.ist_net):
+        assert {p.device for p in net.parameters()} == {cuda0}

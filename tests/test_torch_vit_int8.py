@@ -239,7 +239,8 @@ def test_quantized_slice_matches_jax():
 
 @pytest.mark.parametrize("ist", [True, "static"])
 def test_int8_ist_refused(ist):
-    est = test.GigaPoseEstimator.create("vit_tiny_test", seed=0, ist_descriptor_size=32)
+    est = test.GigaPoseEstimator.create("vit_tiny_test", seed=0, ist_descriptor_size=32,
+                                           device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A11"):
         est.quantize_serving(ist=ist)
     assert isinstance(est.ae_net, AENet)  # nothing was swapped
