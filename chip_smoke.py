@@ -32,7 +32,10 @@ inputs, twice: with the bf16 AE (`serving_quant=off`) and with the int8 AE
    at the main path's shapes (the row prologue at its four widths, the GEMM
    in its four epilogue modes, the attention core) with its time, plain
    time, bound and yardstick (SDPA for the attention core; torch._int_mm,
-   the int32 product alone, for the GEMM);
+   the int32 product alone, for the GEMM); the GEMM shapes, the prologue
+   widths and their yardsticks as device time (the median of 7 replays of
+   a CUDA graph of 10 launches, with the least and the most), and beside
+   it the wrapper's time as a caller sees it, host work included;
 4. bf16 onboarding of 2 objects x 162 procedurally textured 480x640 RGBA
    templates;
 5. bf16 requests: images with several detections, one of them a template
@@ -160,6 +163,23 @@ def cuda_ms(fn, warmup: int = 2, iters: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_stats(fn, reps: int = 7, iters: int = 10) -> dict:
+    """Device time of one fn(): `iters` calls captured in a CUDA graph, so
+    that no host work between launches shows, the graph replayed `reps`
+    times after a warm-up; the median over the replays, with the least and
+    the most reading as its spread."""
+    fn()  # outside the capture: builds and per-device launch settings
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    times = [cuda_ms(graph.replay, warmup=2 if i == 0 else 0, iters=1) / iters
+             for i in range(reps)]
+    del graph
+    return dict(ms=float(np.median(times)), ms_min=min(times), ms_max=max(times))
 
 
 def bound(ops: float, kind: str, nbytes: float) -> dict:
@@ -448,7 +468,8 @@ def phase_int8_kernels(dev, qrec) -> dict:
         steps = int((xq.int() - pq.int()).abs().max())
         check(steps <= (1 if ln else 0) and bool(torch.isfinite(xs).all()),
               f"row prologue K={K} ln={ln}: {steps} steps from its plain version")
-        r = dict(K=K, ln=ln, ms=cuda_ms(kern, iters=20), plain_ms=cuda_ms(plain),
+        r = dict(K=K, ln=ln, **graph_stats(kern), wrapper_ms=cuda_ms(kern, iters=20),
+                 plain_ms=cuda_ms(plain),
                  max_abs_err=float((xs - ps.reshape(-1)).abs().max()), max_steps=steps,
                  # bytes only: its few f32 operations per element take far less
                  **bound(0.0, "f32", T * K * 5 + T * 4 + (2 * K * 4 if ln else 0)))
@@ -471,8 +492,11 @@ def phase_int8_kernels(dev, qrec) -> dict:
 
         nbytes = T * K + N * K + T * 4 + 2 * N * 4 + T * N * out.element_size() \
             + (T * N * 4 + N * 4 if mode == Q._MODE_RES else 0)
-        r = dict(name=name, K=K, N=N, ms=cuda_ms(kern, iters=20), plain_ms=cuda_ms(plain),
-                 partial_library_ms=cuda_ms(lambda: torch._int_mm(xq, wq), iters=10),
+        lib = graph_stats(lambda: torch._int_mm(xq, wq))
+        r = dict(name=name, K=K, N=N, **graph_stats(kern), wrapper_ms=cuda_ms(kern, iters=20),
+                 plain_ms=cuda_ms(plain),
+                 partial_library_ms=lib["ms"],
+                 partial_library_spread=(lib["ms_min"], lib["ms_max"]),
                  **bound(2.0 * T * K * N, "int8", nbytes))
         log("int8_kernel", kernel=f"gemm mode {mode}",
             **{k: (f"{v:.4g}" if isinstance(v, float) else v) for k, v in r.items()})
@@ -745,14 +769,18 @@ def kernel_records(record, qrec, krec, main_stats, bf16_counts, int8_counts, for
             ms=mean([r["ms"] for r in rs]), plain_ms=mean([r["plain_ms"] for r in rs]),
             bound_ms=mean([r["bound_ms"] for r in rs]), bound_by=rs[0]["bound_by"],
             partial_library_ms=mean(lib),
-            shapes={r["name"]: dict(K=r["K"], N=r["N"], ms=r["ms"], bound_ms=r["bound_ms"])
+            shapes={r["name"]: dict(K=r["K"], N=r["N"], ms=r["ms"], ms_min=r["ms_min"],
+                                    ms_max=r["ms_max"], wrapper_ms=r["wrapper_ms"],
+                                    bound_ms=r["bound_ms"],
+                                    partial_library_ms=r["partial_library_ms"])
                     for r in rs})
     rs = krec["row_prologue"]
     add("row_prologue", "qmm.cu", f"{qmm_py}:87", int8_counts["row_prologue"],
         on_main_path=True, max_abs_err=max(r["max_abs_err"] for r in rs),
         ms=mean([r["ms"] for r in rs]), plain_ms=mean([r["plain_ms"] for r in rs]),
         bound_ms=mean([r["bound_ms"] for r in rs]), bound_by="bytes",
-        shapes=[dict(K=r["K"], ln=r["ln"], ms=r["ms"], bound_ms=r["bound_ms"]) for r in rs])
+        shapes=[dict(K=r["K"], ln=r["ln"], ms=r["ms"], ms_min=r["ms_min"], ms_max=r["ms_max"],
+                     wrapper_ms=r["wrapper_ms"], bound_ms=r["bound_ms"]) for r in rs])
     # the chains that port each qmm.py TPU kernel, as measured in phase 3
     T, C, Hd, H, hd = 32 * TOKENS, 1024, 4096, 16, 64
     vec = lambda n, k: n * k * 4

@@ -59,6 +59,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int kMaxP = 256;  // query columns (patches) a CTA holds
@@ -263,11 +265,7 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// K-major operand in the 128-byte swizzle: 8-row groups 1024 bytes apart
-__device__ __forceinline__ u64 smem_desc(uint32_t addr) {
-  return (u64)((addr & 0x3FFFF) >> 4) | ((u64)(16 >> 4) << 16) | ((u64)(1024 >> 4) << 32) |
-         ((u64)1 << 62);
-}
+using hopper::smem_desc;  // K-major operand in the 128-byte swizzle
 
 // d (64 x 256, f32) = [d +] A (64 x 16, bf16) . B^T (256 x 16, bf16)
 __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], u64 da, u64 db, int acc) {
@@ -416,13 +414,13 @@ __global__ void __launch_bounds__(kWgThreads, 1) match_bf16_kernel(
     const int kc = it % nchunks;
     const uint32_t a_s = ring + (it % kRing) * kStageBytes + wg * (kABytes / 2);
     const uint32_t b_s = ring + (it % kRing) * kStageBytes + kABytes;
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+    hopper::wgmma_fence();
 #pragma unroll
     for (int k = 0; k < kTileC / 16; ++k)  // 16 channels = 32 bytes per step
       wgmma_m64n256k16(acc, smem_desc(a_s + 32 * k), smem_desc(b_s + 32 * k),
                        (kc > 0 || k > 0) ? 1 : 0);
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
     if (kc != nchunks - 1) continue;
 
     // ---- the strip is complete: rows r0 and r0 + 8 of this thread, columns

@@ -1,8 +1,9 @@
 // W8A8 int8 serving kernels for Hopper (sm_90a), bound with ctypes through
 // plain C entry points (gp_qmm_quant_rows, gp_qmm_gemm, gp_qmm_attention).
 // Built by gigapose_tpu_torch/kernels/build.py, without --use_fast_math: the
-// divisions (but for the attention's p, see there), square root, exp and
-// tanh are the IEEE / accurate forms, and
+// divisions (but for the attention's p, see there), exp and tanh are the
+// IEEE / accurate forms, LayerNorm's rsqrt is rsqrtf as the plain version's
+// torch.rsqrt computes it on the card (and jax.lax.rsqrt in the TPU kernel), and
 // every product and sum that the plain PyTorch version rounds separately is
 // written with __fmul_rn / __fadd_rn so that nvcc cannot contract it to FMA.
 //
@@ -21,11 +22,17 @@
 // What bounds them on an H100 SXM, at the ViT-L serving shape (T = 32 x 257
 // tokens, C = 1024, 16 heads of 64, hidden 4096):
 // - the GEMMs: the four matmuls of a block are 2 * T * C * 12C = 207 GOP,
-//   0.1 ms on the int8 tensor cores (1,979 TOP/s dense); with their inputs
-//   and outputs in device memory the bytes bound each at 23-44 us (3.35
-//   TB/s). They issue warp-level mma.sync (m16n8k32 s8 -> s32) from
-//   shared-memory tiles loaded with cp.async, a fraction of the wgmma rate;
-//   wgmma / TMA tiles are the next redesign.
+//   0.1 ms on the int8 tensor cores (1,979 TOP/s dense). With their inputs
+//   and outputs in device memory the bytes bound proj, fc1 and fc2 (23-44
+//   us at 3.35 TB/s: fc1 writes a 135 MB f32 hidden) and the operations
+//   bound qkv (26 us). What holds this design back is the feed of its
+//   k-loop: a 128 x 128 tile takes 32 KB of shared memory per 128-deep
+//   k-block for 4 MOP, and the 5 stages that shared memory leaves room for
+//   do not cover a stage's round trip (TMA, wgmma, release across the
+//   cluster), so the tensor cores wait. Sharing the A tile across a 2-CTA
+//   cluster cuts each CTA's L2 reads to 24 KB a k-block and helped; sharing
+//   B as well (2 x 2 CTAs) did not. fc1's tanh-GELU epilogue issues about
+//   40 instructions an output and outlasts the k-loop it runs under.
 // - quant_rows: bytes only (one f32 row in, int8 row and scale out).
 // - attention: bytes. Per block 50.5 MB of bf16 qkv in and 33.7 MB of f32
 //   context out need 25 us; its 8.7 GFLOP need 9 us on the bf16 tensor
@@ -33,17 +40,41 @@
 //   rows never leave registers.
 //
 // Kernels:
-// - quant_rows: one block of 256 threads per row. [Two-pass LayerNorm:
-//   mean, then mean of squared deviations, eps 1e-6] -> row absmax ->
-//   scale = max(absmax, 1e-20) / 127 -> q = clamp(rint(x / scale), +-127).
-//   The row is re-read from L1/L2 at each pass instead of held in
-//   registers, so any K works.
+// - quant_rows: reads each row from device memory once, as 16-byte vectors
+//   held in registers (at most 8 a thread): one warp per row while the row
+//   has at most 256 vectors (K <= 1024 f32, 2048 bf16; 8 rows per CTA,
+//   which stage gamma and beta in shared memory once, while their rows are
+//   in flight), else one CTA of 256 threads per row (K <= 8192 f32, 16384
+//   bf16). From the registers: [two-pass LayerNorm: mean, then mean of
+//   squared deviations, each summed in f64 and rounded once, eps 1e-6] ->
+//   row absmax -> scale = max(absmax, 1e-20) / 127 -> q = clamp(rint(x /
+//   scale), +-127), written as packed 4- or 8-byte int8 groups, coalesced
+//   across the warp. Without LayerNorm the bytes bound it; with it, the
+//   three row reductions in a chain (mean, variance, absmax) add about half.
 // - gemm: C = A . B^T with A the (T, K) int8 rows and B^T the (N, K) int8
-//   weight (the JAX (K, N) weight stored K-contiguous). 128 x 128 x 64 block
-//   tiles, 3-stage cp.async ring (zero-filled past the ragged edges), 8 warps
-//   of 64 x 32, int32 accumulators. The epilogue is exact int32 -> f32, then
-//   acc * xs * ws + b in that order, and per mode: f32 out; f32 res + ls * y;
-//   f32 tanh-GELU; bf16 out.
+//   weight (the JAX (K, N) weight stored K-contiguous), both K-major as
+//   int8 wgmma reads them. Persistent clusters of two CTAs (as many as fit
+//   on the card at once) walk pairs of adjacent 128 x 128 output tiles (one
+//   m-tile, two n-tiles), n fastest. In each CTA a producer warpgroup (40
+//   registers, setmaxnreg) issues TMA loads (tensor maps encoded per launch
+//   on the host, boxes of 128-byte rows in the 128-byte swizzle, zero-filled
+//   past T, N and K) into a 5-stage ring of 32 KB: its own B^T tile, and
+//   half the rows of the shared A tile multicast into both CTAs, so each
+//   CTA draws 24 KB, not 32, from L2 per k-block of 128. Each stage has a
+//   pair of mbarriers (full: the TMA bytes landed; empty: both CTAs' wgmmas
+//   on it are done). Two consumer warpgroups (232 registers) take the CTA's
+//   tiles in turn (ping-pong): each holds a whole tile as two m64n128 int32
+//   accumulators fed by wgmma.mma_async m64n128k32 s8, and a named barrier
+//   hands the tensor cores from one warpgroup's k-loop to the other's, so
+//   one warpgroup's epilogue runs under the other's products while the
+//   producer keeps the ring full. The epilogue is exact int32 -> f32, then
+//   acc * xs * ws + b in that order, and per mode: f32 out; f32 res + ls *
+//   y; f32 tanh-GELU; bf16 out. It goes through shared memory in 64 x 32
+//   chunks, three buffers a warpgroup: the residual copied into the chunk
+//   with cp.async two chunks ahead, each fragment's result written over it, the
+//   chunk stored with 16-byte row-contiguous stores (element stores where N
+//   * size is not a multiple of 16 bytes). ws, bias and ls of the tile sit
+//   in shared memory, loaded once per tile; xs once per fragment row.
 // - attention: one CTA per (head, batch element), the head fastest, with
 //   as many warps (at most 10) as take its 16-query blocks in two rounds. K and V of the head (bf16, Np rounded up to 16 keys, 16-byte
 //   rows padded to 144 bytes) are copied into shared memory once with
@@ -60,111 +91,226 @@
 //   -inf bias and masked keys (-1e9) give exp = 0 exactly, so padded tokens
 //   never reach real rows.
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder comes through the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr float kLnEps = 1e-6f;
+using hopper::u64;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+constexpr float kLnEps = 1e-6f;
 
 __device__ __forceinline__ unsigned ld32(const void* p) {
   return *reinterpret_cast<const unsigned*>(p);
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
+// (lo, hi) -> bf16x2 with lo at the lower address, as an mma operand or a
+// packed store
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<unsigned*>(&v);
 }
 
 // ---------------------------------------------------------------- quant_rows
 
-constexpr int kRowThreads = 256;
+constexpr int kRowBlock = 256;  // threads per CTA
+constexpr int kRowVecs = 8;     // 16-byte vectors a thread holds: 32 f32 or 64 bf16 values
 
-template <bool kMax>
-__device__ float block_reduce(float v, float* red) {
-  v = kMax ? warp_max(v) : warp_sum(v);
-  __syncthreads();  // red may still be read by the previous reduction
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float r = red[0];
-  for (int w = 1; w < kRowThreads / 32; ++w) r = kMax ? fmaxf(r, red[w]) : r + red[w];
-  return r;
+// a 16-byte vector as f32 values (bf16 -> f32 is exact)
+__device__ __forceinline__ void unpack(const uint4& u, float (&f)[4]) {
+  f[0] = __uint_as_float(u.x), f[1] = __uint_as_float(u.y);
+  f[2] = __uint_as_float(u.z), f[3] = __uint_as_float(u.w);
+}
+__device__ __forceinline__ void unpack(const uint4& u, float (&f)[8]) {
+  const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {  // the lower address holds the lower half
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// sum or max over the threads of one row: a warp, or the whole block
+template <bool kMax, int kRowThreads, typename V>
+__device__ __forceinline__ V row_reduce(V v, V* red) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const V o = __shfl_xor_sync(0xffffffffu, v, off);
+    v = kMax ? (o > v ? o : v) : v + o;
+  }
+  if constexpr (kRowThreads == 32) {
+    return v;
+  } else {
+    static_assert(kRowThreads == kRowBlock, "a row is a warp or the whole block");
+    __syncthreads();  // red may still be read by the previous reduction
+    if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+    __syncthreads();
+    V r = red[0];
+    for (int w = 1; w < kRowBlock / 32; ++w) r = kMax ? (red[w] > r ? red[w] : r) : r + red[w];
+    return r;
+  }
+}
+
+template <typename T, int kRowThreads>
+__global__ void __launch_bounds__(kRowBlock) quant_rows_kernel(
+    const T* __restrict__ x, const float* __restrict__ gamma,
+    const float* __restrict__ beta, int8_t* __restrict__ xq,
+    float* __restrict__ xs, int rows, int K) {
+  constexpr int kE = 16 / sizeof(T);  // values per vector
+  // one warp per row: the CTA's rows share gamma and beta, staged once
+  constexpr bool kStage = kRowThreads == 32;
+  __shared__ double red[kRowBlock / 32];
+  __shared__ __align__(16) float gb[2][kStage ? 32 * kRowVecs * kE : 4];
+  const int t = threadIdx.x % kRowThreads;
+  const int row = blockIdx.x * (kRowBlock / kRowThreads) + threadIdx.x / kRowThreads;
+  const int nvec = K / kE;
+  // vector c = t + i * kRowThreads of the row, read once; zeros past the row
+  const uint4* xr = reinterpret_cast<const uint4*>(x + (size_t)row * K);
+  uint4 u[kRowVecs];
+#pragma unroll
+  for (int i = 0; i < kRowVecs; ++i) {
+    const int c = t + i * kRowThreads;
+    u[i] = row < rows && c < nvec ? __ldcs(xr + c) : make_uint4(0u, 0u, 0u, 0u);
+  }
+  if (kStage && gamma != nullptr) {  // while the rows are in flight
+    for (int c = threadIdx.x; c < K / 4; c += kRowBlock) {
+      reinterpret_cast<float4*>(gb[0])[c] = __ldg(reinterpret_cast<const float4*>(gamma) + c);
+      reinterpret_cast<float4*>(gb[1])[c] = __ldg(reinterpret_cast<const float4*>(beta) + c);
+    }
+    __syncthreads();
+  }
+  if (row >= rows) return;  // whole warps: the block-per-row grid has no spare rows
+  float v[kRowVecs][kE];
+#pragma unroll
+  for (int i = 0; i < kRowVecs; ++i) unpack(u[i], v[i]);
+  if (gamma != nullptr) {
+    // the mean of the row and of its f32 squared deviations, each summed in
+    // f64 and rounded once: the sums' own order does not show, so the one
+    // step that separates the kernel from the plain version is the plain
+    // f32 sums' rounding alone
+    double s = 0.0;
+#pragma unroll
+    for (int i = 0; i < kRowVecs; ++i)
+#pragma unroll
+      for (int e = 0; e < kE; ++e) s += (double)v[i][e];
+    const float mu = (float)(row_reduce<false, kRowThreads>(s, red) / K);
+    double q = 0.0;
+#pragma unroll
+    for (int i = 0; i < kRowVecs; ++i)
+      if (t + i * kRowThreads < nvec)
+#pragma unroll
+        for (int e = 0; e < kE; ++e) {
+          const float d = __fsub_rn(v[i][e], mu);
+          q += (double)__fmul_rn(d, d);
+        }
+    const float var = (float)(row_reduce<false, kRowThreads>(q, red) / K);
+    const float rstd = rsqrtf(__fadd_rn(var, kLnEps));  // what torch.rsqrt gives on the card
+#pragma unroll
+    for (int i = 0; i < kRowVecs; ++i) {
+      const int c = t + i * kRowThreads;
+      if (c >= nvec) continue;
+#pragma unroll
+      for (int k = 0; k < kE / 4; ++k) {
+        const int j = c * (kE / 4) + k;  // float4 index into gamma, beta
+        const float4 gv = kStage ? reinterpret_cast<const float4*>(gb[0])[j]
+                                 : __ldg(reinterpret_cast<const float4*>(gamma) + j);
+        const float4 bv = kStage ? reinterpret_cast<const float4*>(gb[1])[j]
+                                 : __ldg(reinterpret_cast<const float4*>(beta) + j);
+        const float gs[4] = {gv.x, gv.y, gv.z, gv.w}, bs[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float& y = v[i][4 * k + e];
+          y = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(y, mu), rstd), gs[e]), bs[e]);
+        }
+      }
+    }
+  }
+  float m = 0.f;  // past the row every value is 0
+#pragma unroll
+  for (int i = 0; i < kRowVecs; ++i)
+#pragma unroll
+    for (int e = 0; e < kE; ++e) m = fmaxf(m, fabsf(v[i][e]));
+  const float scale = fmaxf((float)row_reduce<true, kRowThreads>((double)m, red), 1e-20f) / 127.0f;
+#pragma unroll
+  for (int i = 0; i < kRowVecs; ++i) {
+    const int c = t + i * kRowThreads;
+    if (c >= nvec) continue;
+    unsigned w[kE / 4];
+#pragma unroll
+    for (int k = 0; k < kE / 4; ++k) {
+      w[k] = 0u;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float q = fminf(fmaxf(rintf(v[i][4 * k + e] / scale), -127.f), 127.f);
+        w[k] |= ((unsigned)(int)q & 0xffu) << (8 * e);
+      }
+    }
+    int8_t* dst = xq + (size_t)row * K + c * kE;
+    if constexpr (kE == 4)
+      *reinterpret_cast<unsigned*>(dst) = w[0];
+    else
+      *reinterpret_cast<uint2*>(dst) = make_uint2(w[0], w[1]);
+  }
+  if (t == 0) xs[row] = scale;
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kRowThreads) quant_rows_kernel(
-    const T* __restrict__ x, const float* __restrict__ gamma,
-    const float* __restrict__ beta, int8_t* __restrict__ xq,
-    float* __restrict__ xs, int K) {
-  __shared__ float red[kRowThreads / 32];
-  const size_t row = blockIdx.x;
-  const T* xr = x + row * K;
-  const bool ln = gamma != nullptr;
-  float mu = 0.f, rstd = 1.f;
-  if (ln) {
-    float s = 0.f;
-    for (int i = threadIdx.x; i < K; i += kRowThreads) s += to_f32(xr[i]);
-    mu = block_reduce<false>(s, red) / (float)K;
-    float q = 0.f;
-    for (int i = threadIdx.x; i < K; i += kRowThreads) {
-      const float d = __fsub_rn(to_f32(xr[i]), mu);
-      q = __fadd_rn(q, __fmul_rn(d, d));
-    }
-    const float var = block_reduce<false>(q, red) / (float)K;
-    rstd = 1.0f / sqrtf(__fadd_rn(var, kLnEps));
-  }
-  auto value = [&](int i) {
-    const float v = to_f32(xr[i]);
-    if (!ln) return v;
-    return __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v, mu), rstd), gamma[i]), beta[i]);
-  };
-  float m = 0.f;
-  for (int i = threadIdx.x; i < K; i += kRowThreads) m = fmaxf(m, fabsf(value(i)));
-  const float scale = fmaxf(block_reduce<true>(m, red), 1e-20f) / 127.0f;
-  for (int i = threadIdx.x; i < K; i += kRowThreads) {
-    const float q = fminf(fmaxf(rintf(value(i) / scale), -127.f), 127.f);
-    xq[row * K + i] = (int8_t)q;
-  }
-  if (threadIdx.x == 0) xs[row] = scale;
+int launch_quant_rows(const void* x, const float* gamma, const float* beta, int8_t* xq,
+                      float* xs, int rows, int K, cudaStream_t s) {
+  const int nvec = K / (16 / (int)sizeof(T));
+  const T* xt = static_cast<const T*>(x);
+  if (nvec <= 32 * kRowVecs)
+    quant_rows_kernel<T, 32><<<(rows + kRowBlock / 32 - 1) / (kRowBlock / 32), kRowBlock, 0, s>>>(
+        xt, gamma, beta, xq, xs, rows, K);
+  else if (nvec <= kRowBlock * kRowVecs)
+    quant_rows_kernel<T, kRowBlock><<<rows, kRowBlock, 0, s>>>(xt, gamma, beta, xq, xs, rows, K);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------- gemm
 
-constexpr int kBM = 128, kBN = 128, kBK = 64, kStages = 3, kGemmThreads = 256;
-constexpr int kRowBytes = kBK + 16;  // 80: 16-byte rows, conflict-free fragment reads
-constexpr int kStageBytes = (kBM + kBN) * kRowBytes;
-constexpr int kGemmSmem = kStages * kStageBytes;  // 61,440 bytes
+constexpr int kTileM = 128, kTileN = 128;  // one consumer warpgroup's output tile
+constexpr int kTileK = 128;                // int8 values per k-block: one swizzle row
+constexpr int kRing = 5;                   // stages
+constexpr int kOpBytes = 128 * kTileK;     // one operand's tile: 16 KB
+constexpr int kStageBytes = 2 * kOpBytes;  // A then B^T
+constexpr int kCluster = 2;                // CTAs on adjacent n-tiles, sharing the A tile
+constexpr int kASlice = kTileM / kCluster;  // rows of A each CTA loads for the cluster
+constexpr int kEpiCols = 32;               // columns per epilogue chunk
+constexpr int kEpiLd = kEpiCols + 8;       // chunk row stride in floats: conflict-free
+constexpr int kEpiFloats = 64 * kEpiLd;    // one 64-row chunk buffer: 10 KB
+constexpr int kEpiBufs = 3;                // per warpgroup: the residual two chunks ahead
+constexpr int kEpiChunks = 2 * (kTileN / kEpiCols);  // per tile: 2 row halves x 4
+constexpr int kGemmThreads = 384;  // two consumer warpgroups and a producer warpgroup
+constexpr int kBarChunk = 1;       // named barriers 1, 2: one warpgroup's threads
+constexpr int kBarTurn = 3;        // 3, 4: warpgroup w may start its k-loop
+constexpr size_t kRingBytes = (size_t)kRing * kStageBytes;
+constexpr size_t kGemmSmem = 1024  // slack to align the ring to the swizzle's 1024 bytes
+                             + kRingBytes
+                             + 2 * kEpiBufs * kEpiFloats * 4  // chunk buffers
+                             + 2 * 3 * kTileN * 4      // ws, bias, ls per warpgroup
+                             + 2 * kRing * 8;          // full and empty mbarriers
 enum { kOutF32 = 0, kOutF32Res = 1, kOutF32Gelu = 2, kOutBf16 = 3 };
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int bytes) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(bytes));
 }
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem), "r"(bytes));
+}
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4], unsigned b0,
-                                       unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
@@ -176,6 +322,36 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// d (64 x 128, s32) = [d +] A (64 x 32, s8) . B^T (128 x 32, s8), both K-major
+// in shared memory (descriptors da, db); `acc` = 0 starts the sum
+__device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64], u64 da, u64 db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(acc));
+}
+// the accumulators are final here: no read of them moves above the wait
+__device__ __forceinline__ void fence_acc(int (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
 // 0.5 * x * (1 + tanh(c * (x + 0.044715 * x * x * x))), left to right
 __device__ __forceinline__ float gelu_tanh(float x) {
   const float c = 0.7978845608028654f;
@@ -184,114 +360,368 @@ __device__ __forceinline__ float gelu_tanh(float x) {
   return __fmul_rn(__fmul_rn(0.5f, x), __fadd_rn(1.0f, t));
 }
 
+// starts copying rows r0.. r0 + 63, columns c0.. c0 + 31 of the (T, N)
+// residual into a chunk buffer (wt: the thread in its warpgroup), 16 bytes
+// a copy where `vec`, zeros past T and N
+__device__ __forceinline__ void chunk_in(float* buf, const float* __restrict__ res, int r0,
+                                         int c0, int T, int N, bool vec, int wt) {
+  if (vec) {
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      const int q = wt + 128 * p, lr = q >> 3, lc = (q & 7) * 4;
+      const int row = r0 + lr, col = c0 + lc;
+      const bool ok = row < T && col < N;
+      cp_async16(buf + lr * kEpiLd + lc, ok ? res + (size_t)row * N + col : res, ok ? 16 : 0);
+    }
+  } else {
+#pragma unroll 4
+    for (int p = 0; p < 16; ++p) {
+      const int q = wt + 128 * p, lr = q >> 5, lc = q & 31;
+      const int row = r0 + lr, col = c0 + lc;
+      const bool ok = row < T && col < N;
+      cp_async4(buf + lr * kEpiLd + lc, ok ? res + (size_t)row * N + col : res, ok ? 4 : 0);
+    }
+  }
+  cp_async_commit();
+}
+
+// a chunk buffer to rows r0.., columns c0.. of the (T, N) output, as
+// 16-byte row-contiguous stores where `vec`, rounded to bf16 in that mode
 template <int kMode>
-__global__ void __launch_bounds__(kGemmThreads) gemm_kernel(
-    const int8_t* __restrict__ a, const float* __restrict__ xs,
-    const int8_t* __restrict__ bt, const float* __restrict__ ws,
-    const float* __restrict__ bias, const float* __restrict__ res,
-    const float* __restrict__ ls, void* __restrict__ out, int T, int N, int K) {
-  extern __shared__ __align__(16) int8_t smem[];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, tig = lane & 3;
-  const int wm = warp >> 2, wn = warp & 3;  // 2 x 4 warps of 64 x 32
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  const int ktiles = (K + kBK - 1) / kBK;
-
-  // rows 0..kBM-1 of a stage are A rows m0.., rows kBM.. are B^T rows n0..
-  auto load_stage = [&](int stage, int kt) {
-    int8_t* dst = smem + stage * kStageBytes;
-    const int k0 = kt * kBK;
-    for (int i = tid; i < (kBM + kBN) * (kBK / 16); i += kGemmThreads) {
-      const int r = i / (kBK / 16), c = (i % (kBK / 16)) * 16;
-      const bool is_a = r < kBM;
-      const int grow = is_a ? m0 + r : n0 + r - kBM;
-      const int8_t* base = is_a ? a : bt;
-      const bool ok = grow < (is_a ? T : N) && k0 + c < K;
-      const int8_t* src = ok ? base + (size_t)grow * K + k0 + c : base;
-      cp_async16(dst + r * kRowBytes + c, src, ok ? 16 : 0);
-    }
-  };
-
-  int acc[4][4][4];
+__device__ __forceinline__ void chunk_out(void* out, const float* buf, int r0, int c0, int T,
+                                          int N, bool vec, int wt) {
+  if constexpr (kMode == kOutBf16) {
+    __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
+    if (vec) {
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0;
-
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < ktiles) load_stage(s, s);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < ktiles; ++kt) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();  // stage kt landed; stage kt-1 is free for the next load
-    if (kt + kStages - 1 < ktiles) load_stage((kt + kStages - 1) % kStages, kt + kStages - 1);
-    cp_async_commit();
-    const int8_t* as = smem + (kt % kStages) * kStageBytes;
-    const int8_t* bs = as + kBM * kRowBytes;
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 32) {
-      unsigned af[4][4], bf[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        const int8_t* p = as + (wm * 64 + mi * 16 + g) * kRowBytes + kk + tig * 4;
-        af[mi][0] = ld32(p);
-        af[mi][1] = ld32(p + 8 * kRowBytes);
-        af[mi][2] = ld32(p + 16);
-        af[mi][3] = ld32(p + 8 * kRowBytes + 16);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int8_t* p = bs + (wn * 32 + ni * 8 + g) * kRowBytes + kk + tig * 4;
-        bf[ni][0] = ld32(p);
-        bf[ni][1] = ld32(p + 16);
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_s8(acc[mi][ni], af[mi], bf[ni][0], bf[ni][1]);
-    }
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = m0 + wm * 64 + mi * 16 + g + (e >> 1) * 8;
-        const int col = n0 + wn * 32 + ni * 8 + tig * 2 + (e & 1);
+      for (int p = 0; p < 2; ++p) {
+        const int q = wt + 128 * p, lr = q >> 2, lc = (q & 3) * 8;
+        const int row = r0 + lr, col = c0 + lc;
         if (row >= T || col >= N) continue;
-        float y = __fmul_rn(__fmul_rn(__int2float_rn(acc[mi][ni][e]), xs[row]), ws[col]);
-        y = __fadd_rn(y, bias[col]);
-        const size_t o = (size_t)row * N + col;
-        if constexpr (kMode == kOutF32Res) y = __fadd_rn(res[o], __fmul_rn(y, ls[col]));
-        if constexpr (kMode == kOutF32Gelu) y = gelu_tanh(y);
-        if constexpr (kMode == kOutBf16) {
-          static_cast<__nv_bfloat16*>(out)[o] = __float2bfloat16_rn(y);
-        } else {
-          static_cast<float*>(out)[o] = y;
+        const float4 a = *reinterpret_cast<const float4*>(buf + lr * kEpiLd + lc);
+        const float4 b = *reinterpret_cast<const float4*>(buf + lr * kEpiLd + lc + 4);
+        *reinterpret_cast<uint4*>(o + (size_t)row * N + col) =
+            make_uint4(pack_bf16(a.x, a.y), pack_bf16(a.z, a.w), pack_bf16(b.x, b.y),
+                       pack_bf16(b.z, b.w));
+      }
+    } else {
+#pragma unroll 4
+      for (int p = 0; p < 16; ++p) {
+        const int q = wt + 128 * p, lr = q >> 5, lc = q & 31;
+        const int row = r0 + lr, col = c0 + lc;
+        if (row < T && col < N)
+          o[(size_t)row * N + col] = __float2bfloat16_rn(buf[lr * kEpiLd + lc]);
+      }
+    }
+  } else {
+    float* o = static_cast<float*>(out);
+    if (vec) {
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        const int q = wt + 128 * p, lr = q >> 3, lc = (q & 7) * 4;
+        const int row = r0 + lr, col = c0 + lc;
+        if (row < T && col < N)
+          *reinterpret_cast<float4*>(o + (size_t)row * N + col) =
+              *reinterpret_cast<const float4*>(buf + lr * kEpiLd + lc);
+      }
+    } else {
+#pragma unroll 4
+      for (int p = 0; p < 16; ++p) {
+        const int q = wt + 128 * p, lr = q >> 5, lc = q & 31;
+        const int row = r0 + lr, col = c0 + lc;
+        if (row < T && col < N) o[(size_t)row * N + col] = buf[lr * kEpiLd + lc];
+      }
+    }
+  }
+}
+
+// Launched in clusters of kCluster CTAs. The cluster walks groups of
+// adjacent output tiles (one m-tile, n-tiles kCluster np + r), n fastest;
+// CTA r of the cluster takes n-tile kCluster np + r, loads its own B^T
+// tile and rows r kASlice.. of the shared A tile, multicast to every CTA.
+template <int kMode>
+__global__ void __launch_bounds__(kGemmThreads, 1) gemm_kernel(
+    const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
+    const float* __restrict__ xs, const float* __restrict__ ws,
+    const float* __restrict__ bias, const float* __restrict__ res,
+    const float* __restrict__ ls, void* __restrict__ out, int T, int N, int K, int vec) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t ring = (raw + 1023u) & ~1023u;  // the same offset in every CTA
+  float* epi_all = reinterpret_cast<float*>(smem_raw + (ring - raw) + kRingBytes);
+  float* vec_all = epi_all + 2 * kEpiBufs * kEpiFloats;
+  const uint32_t bars = ring + kRingBytes + (2 * kEpiBufs * kEpiFloats + 2 * 3 * kTileN) * 4;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (kRing + s); };
+
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const unsigned rank = hopper::cluster_rank();
+  const int cluster = blockIdx.x / kCluster, clusters = gridDim.x / kCluster;
+  const int pairs_n = ((N + kTileN - 1) / kTileN + kCluster - 1) / kCluster;
+  const int pairs = (T + kTileM - 1) / kTileM * pairs_n;
+  const int ktiles = (K + kTileK - 1) / kTileK;
+
+  if (tid == 0) {
+    for (int s = 0; s < kRing; ++s) {
+      hopper::mbar_init(full(s), 1);          // the producer's arrival, plus the TMA bytes
+      hopper::mbar_init(empty(s), kCluster);  // the consuming warpgroup of each CTA
+    }
+    hopper::mbar_init_fence();
+  }
+  hopper::cluster_sync();  // both CTAs' barriers exist before either copies or arrives
+
+  if (warp >= 8) {  // ------------------------------------------ producer
+    hopper::setmaxnreg_dec<40>();
+    if (tid == 256) {
+      int it = 0;  // k-blocks issued, over all of this CTA's tiles
+      for (int p = cluster; p < pairs; p += clusters) {
+        const int m0 = p / pairs_n * kTileM;
+        const int n0 = (p % pairs_n * kCluster + (int)rank) * kTileN;
+        for (int kb = 0; kb < ktiles; ++kb, ++it) {
+          const int s = it % kRing;
+          // stage s is free in every CTA: this CTA's slice of A goes to all
+          hopper::mbar_wait(empty(s), ((it / kRing) & 1) ^ 1);
+          hopper::mbar_expect_tx(full(s), kStageBytes);
+          const uint32_t st = ring + s * kStageBytes;
+          hopper::tma_load_2d_multicast(st + rank * kASlice * kTileK, &map_a, full(s),
+                                        kb * kTileK, m0 + kASlice * (int)rank,
+                                        (1u << kCluster) - 1);
+          hopper::tma_load_2d(st + kOpBytes, &map_b, full(s), kb * kTileK, n0);
         }
       }
+      // stay until every CTA's consumers have released every stage: their
+      // last arrivals land in this CTA's shared memory
+      for (int k = 0; k < kRing; ++k, ++it)
+        hopper::mbar_wait(empty(it % kRing), ((it / kRing) & 1) ^ 1);
+    }
+    return;
+  }
+
+  // ------------------------------------------------------------- consumers
+  hopper::setmaxnreg_inc<232>();
+  const int lane = tid & 31, wg = warp >> 2, wt = tid & 127, ww = warp & 3;
+  const int g = lane >> 2, tig = lane & 3;
+  float* bufs = epi_all + wg * kEpiBufs * kEpiFloats;  // chunk q goes to buffer q % 3
+  float* v_ws = vec_all + wg * 3 * kTileN;
+  float* v_b = v_ws + kTileN;
+  float* v_ls = v_b + kTileN;
+  int acc[2][64] = {};  // rows 0-63 and 64-127 of the tile
+  int it = 0;           // k-blocks consumed by either warpgroup, as the producer counts them
+  for (int i = 0, p = cluster; p < pairs; ++i, p += clusters) {
+    if ((i & 1) != wg) {  // the other warpgroup's tile
+      it += ktiles;
+      continue;
+    }
+    const int m0 = p / pairs_n * kTileM;
+    const int n0 = (p % pairs_n * kCluster + (int)rank) * kTileN;
+    {  // the tile's column vectors, read once (the last chunk's barrier freed them)
+      const int col = n0 + wt;
+      v_ws[wt] = col < N ? ws[col] : 0.f;
+      v_b[wt] = col < N ? bias[col] : 0.f;
+      if constexpr (kMode == kOutF32Res) v_ls[wt] = col < N ? ls[col] : 0.f;
+    }
+    // the residual's first two chunks land during the k-loop, once the last
+    // tile's final chunk (in buffer 1) is stored
+    if constexpr (kMode == kOutF32Res) {
+      hopper::bar_sync(kBarChunk + wg, 128);
+      chunk_in(bufs, res, m0, n0, T, N, vec, wt);
+      chunk_in(bufs + kEpiFloats, res, m0, n0 + kEpiCols, T, N, vec, wt);
+    }
+    if (i > 0) hopper::bar_sync(kBarTurn + wg, 256);  // the other k-loop is done
+    for (int kb = 0; kb < ktiles; ++kb, ++it) {
+      const int s = it % kRing;
+      hopper::mbar_wait(full(s), (it / kRing) & 1);
+      const uint32_t a_s = ring + s * kStageBytes, b_s = a_s + kOpBytes;
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < kTileK / 32; ++k) {  // 32 int8 = 32 bytes per step
+        const u64 db = hopper::smem_desc(b_s + 32 * k);
+        wgmma_m64n128k32_s8(acc[0], hopper::smem_desc(a_s + 32 * k), db, kb > 0 || k > 0);
+        wgmma_m64n128k32_s8(acc[1], hopper::smem_desc(a_s + kOpBytes / 2 + 32 * k), db,
+                            kb > 0 || k > 0);
+      }
+      hopper::wgmma_commit();
+      if (kb > 0) {  // the previous k-block's products are done: free its stage everywhere
+        hopper::wgmma_wait<1>();
+        if (wt == 0)
+          for (unsigned c = 0; c < kCluster; ++c)
+            hopper::mbar_arrive_cluster(empty((it - 1) % kRing), c);
+      }
+    }
+    hopper::wgmma_wait<0>();
+    fence_acc(acc[0]);
+    fence_acc(acc[1]);
+    if (wt == 0)
+      for (unsigned c = 0; c < kCluster; ++c)
+        hopper::mbar_arrive_cluster(empty((it - 1) % kRing), c);
+    if (p + clusters < pairs) hopper::bar_arrive(kBarTurn + (wg ^ 1), 256);
+
+    // epilogue, under the other warpgroup's k-loop
+    hopper::bar_sync(kBarChunk + wg, 128);  // the column vectors are in place
+    float xr[2][2];  // xs of rows 64 h + 16 ww + g + 8 r
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = m0 + 64 * h + 16 * ww + g + 8 * r;
+        xr[h][r] = row < T ? xs[row] : 0.f;
+      }
+#pragma unroll
+    for (int q = 0; q < kEpiChunks; ++q) {
+      const int h = q / (kTileN / kEpiCols), c = q % (kTileN / kEpiCols);
+      const int r0 = m0 + 64 * h, c0 = n0 + c * kEpiCols;
+      float* buf = bufs + q % kEpiBufs * kEpiFloats;
+      if constexpr (kMode == kOutF32Res) {
+        if (q + 1 < kEpiChunks)  // this thread's part of chunk q (q + 1 may be in flight)
+          cp_async_wait<1>();
+        else
+          cp_async_wait<0>();
+        hopper::bar_sync(kBarChunk + wg, 128);  // everyone's; chunk q - 1 is stored
+        if (q + 2 < kEpiChunks) {
+          const int qn = q + 2, hn = qn / (kTileN / kEpiCols), cn = qn % (kTileN / kEpiCols);
+          chunk_in(bufs + qn % kEpiBufs * kEpiFloats, res, m0 + 64 * hn, n0 + cn * kEpiCols, T,
+                   N, vec, wt);
+        }
+      }
+#pragma unroll
+      for (int jj = 0; jj < kEpiCols / 8; ++jj) {
+        const int j = c * (kEpiCols / 8) + jj;  // n8 block of the accumulator
+        const int lc = 8 * jj + 2 * tig, tc = c * kEpiCols + lc;
+        const float2 w2 = *reinterpret_cast<const float2*>(v_ws + tc);
+        const float2 b2 = *reinterpret_cast<const float2*>(v_b + tc);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float* e = buf + (16 * ww + g + 8 * r) * kEpiLd + lc;
+          const float a0 = __int2float_rn(acc[h][4 * j + 2 * r]);
+          const float a1 = __int2float_rn(acc[h][4 * j + 2 * r + 1]);
+          float y0 = __fmul_rn(__fmul_rn(a0, xr[h][r]), w2.x);
+          float y1 = __fmul_rn(__fmul_rn(a1, xr[h][r]), w2.y);
+          y0 = __fadd_rn(y0, b2.x);
+          y1 = __fadd_rn(y1, b2.y);
+          if constexpr (kMode == kOutF32Res) {
+            const float2 l2 = *reinterpret_cast<const float2*>(v_ls + tc);
+            y0 = __fadd_rn(e[0], __fmul_rn(y0, l2.x));
+            y1 = __fadd_rn(e[1], __fmul_rn(y1, l2.y));
+          }
+          if constexpr (kMode == kOutF32Gelu) {
+            y0 = gelu_tanh(y0);
+            y1 = gelu_tanh(y1);
+          }
+          *reinterpret_cast<float2*>(e) = make_float2(y0, y1);
+        }
+      }
+      // chunk q is complete, and every thread has stored chunk q - 1: the
+      // buffers that chunks q + 1 and q + 2 fill are free
+      hopper::bar_sync(kBarChunk + wg, 128);
+      chunk_out<kMode>(out, buf, r0, c0, T, N, vec, wt);
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver through the runtime, so that the
+// library needs no link against libcuda; null where the driver lacks it
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// a (rows, K) K-contiguous int8 matrix as box_rows x 128-byte boxes in the
+// 128-byte swizzle; false if it cannot be encoded (alignment, driver)
+bool encode_operand(CUtensorMap* map, const void* p, int rows, int K, int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)K};
+  const cuuint32_t box[2] = {(cuuint32_t)kTileK, (cuuint32_t)box_rows};
+  const cuuint32_t step[2] = {1u, 1u};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(p), dims, strides, box, step,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+constexpr int kMaxDevices = 64;  // the per-device launch settings cached
+
+// 384 threads, all of the shared memory, clusters of kCluster CTAs
+cudaLaunchConfig_t gemm_config(cudaLaunchAttribute* cluster, cudaStream_t stream) {
+  cluster->id = cudaLaunchAttributeClusterDimension;
+  cluster->val.clusterDim.x = kCluster;
+  cluster->val.clusterDim.y = cluster->val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(kGemmThreads);
+  cfg.dynamicSmemBytes = kGemmSmem;
+  cfg.stream = stream;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// once per mode and device: the shared-memory opt-in, and how many clusters
+// fit on the card at once (the persistent grid); a CUDA error is negative
+template <int kMode>
+int resident_clusters() {
+  static int resident[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return -(int)err;
+  if (dev >= kMaxDevices) return -(int)cudaErrorInvalidDevice;
+  if (resident[dev] == 0) {
+    err = cudaFuncSetAttribute(gemm_kernel<kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)kGemmSmem);
+    if (err != cudaSuccess) return -(int)err;
+    int sms = 0, n = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return -(int)err;
+    cudaLaunchAttribute cluster;
+    cudaLaunchConfig_t cfg = gemm_config(&cluster, nullptr);
+    cfg.gridDim = dim3(sms / kCluster * kCluster);
+    err = cudaOccupancyMaxActiveClusters(&n, gemm_kernel<kMode>, &cfg);
+    if (err != cudaSuccess) return -(int)err;
+    if (n <= 0) return -(int)cudaErrorInvalidConfiguration;
+    resident[dev] = n;
+  }
+  return resident[dev];
 }
 
 template <int kMode>
 int launch_gemm(const void* xq, const void* xs, const void* wt, const void* ws,
                 const void* bias, const void* res, const void* ls, void* out, int T, int N,
                 int K, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      gemm_kernel<kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize, kGemmSmem);
+  const int resident = resident_clusters<kMode>();
+  if (resident < 0) return -resident;
+  CUtensorMap map_a, map_b;  // A changes at every call: encoded per launch (host only)
+  if (!encode_operand(&map_a, xq, T, K, kASlice) || !encode_operand(&map_b, wt, N, K, kTileN))
+    return (int)cudaErrorInvalidValue;
+  const int pairs =
+      (T + kTileM - 1) / kTileM * (((N + kTileN - 1) / kTileN + kCluster - 1) / kCluster);
+  const size_t esize = kMode == kOutBf16 ? 2 : 4;
+  auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  const int vec = (N * esize) % 16 == 0 && aligned(out) && (res == nullptr || aligned(res));
+  cudaLaunchAttribute cluster;
+  cudaLaunchConfig_t cfg = gemm_config(&cluster, stream);
+  cfg.gridDim = dim3((pairs < resident ? pairs : resident) * kCluster);
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, gemm_kernel<kMode>, map_a, map_b, static_cast<const float*>(xs),
+      static_cast<const float*>(ws), static_cast<const float*>(bias),
+      static_cast<const float*>(res), static_cast<const float*>(ls), out, T, N, K, vec);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((N + kBN - 1) / kBN, (T + kBM - 1) / kBM);
-  gemm_kernel<kMode><<<grid, kGemmThreads, kGemmSmem, stream>>>(
-      static_cast<const int8_t*>(xq), static_cast<const float*>(xs),
-      static_cast<const int8_t*>(wt), static_cast<const float*>(ws),
-      static_cast<const float*>(bias), static_cast<const float*>(res),
-      static_cast<const float*>(ls), out, T, N, K);
   return (int)cudaGetLastError();
 }
 
@@ -315,12 +745,6 @@ __device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr));
-}
-
-// (lo, hi) -> bf16x2 with lo at the lower address, as an mma operand
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<unsigned*>(&v);
 }
 
 // s for the warp's 16 queries and keys key0 .. key0 + 15: s[n][e] is row
@@ -488,37 +912,32 @@ int launch_attention(const void* qkv, const void* key_bias, void* ctx, int B, in
 // All arrays contiguous on the current device; each entry point returns the
 // CUDA error of its launch (0 on success) and runs asynchronously on `stream`.
 
-// x (T, K) f32 (dtype 0) or bf16 (dtype 1); gamma / beta (K,) f32 or both
-// null (no LayerNorm) -> xq (T, K) int8, xs (T,) f32.
+// x (T, K) f32 (dtype 0) or bf16 (dtype 1), 16-byte aligned, K a multiple
+// of 16 and at most 8192 (f32) or 16384 (bf16); gamma / beta (K,) f32,
+// 16-byte aligned, or both null (no LayerNorm) -> xq (T, K) int8, xs (T,) f32.
 extern "C" int gp_qmm_quant_rows(const void* x, int dtype, const void* gamma,
                                  const void* beta, void* xq, void* xs, int T, int K,
                                  void* stream) {
-  if (T <= 0 || K <= 0 || (gamma == nullptr) != (beta == nullptr))
+  if (T <= 0 || K <= 0 || K % 16 || (gamma == nullptr) != (beta == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* g = static_cast<const float*>(gamma);
   const float* be = static_cast<const float*>(beta);
   int8_t* q = static_cast<int8_t*>(xq);
   float* sc = static_cast<float*>(xs);
-  if (dtype == 0)
-    quant_rows_kernel<float><<<T, kRowThreads, 0, s>>>(static_cast<const float*>(x), g, be, q,
-                                                        sc, K);
-  else if (dtype == 1)
-    quant_rows_kernel<__nv_bfloat16><<<T, kRowThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), g, be, q, sc, K);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  if (dtype == 0) return launch_quant_rows<float>(x, g, be, q, sc, T, K, s);
+  if (dtype == 1) return launch_quant_rows<__nv_bfloat16>(x, g, be, q, sc, T, K, s);
+  return (int)cudaErrorInvalidValue;
 }
 
-// xq (T, K) int8, xs (T,) f32, wt (N, K) int8, ws / bias / ls (N,) f32,
-// res (T, N) f32 (mode 1 only) -> out (T, N): mode 0 f32, 1 f32 res + ls * y,
-// 2 f32 tanh-GELU, 3 bf16. K must be a multiple of 16.
+// xq (T, K) int8 and wt (N, K) int8, both 16-byte aligned (TMA), xs (T,)
+// f32, ws / bias / ls (N,) f32, res (T, N) f32 (mode 1 only) -> out (T, N):
+// mode 0 f32, 1 f32 res + ls * y, 2 f32 tanh-GELU, 3 bf16. K must be a
+// multiple of 16.
 extern "C" int gp_qmm_gemm(const void* xq, const void* xs, const void* wt, const void* ws,
                            const void* bias, const void* res, const void* ls, void* out,
                            int T, int N, int K, int mode, void* stream) {
-  if (T <= 0 || N <= 0 || K <= 0 || K % 16 || (T + kBM - 1) / kBM > 65535)
-    return (int)cudaErrorInvalidValue;
+  if (T <= 0 || N <= 0 || K <= 0 || K % 16) return (int)cudaErrorInvalidValue;
   if (mode == kOutF32Res && (res == nullptr || ls == nullptr)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (mode) {

@@ -7,8 +7,9 @@ in seconds without PyTorch's headers:
          -Xcompiler -fPIC -Xptxas -v -o build/gigapose_tpu_torch/<name>-<hash>.so csrc/<name>.cu
 
 The output lands in ``build/gigapose_tpu_torch/`` at the repository root
-(git-ignored), named by a hash of the source, and is built at first use in a
-process: nothing is compiled at import. ``-Xptxas -v`` makes ptxas report
+(git-ignored), named by a hash of the source and of the shared headers
+``csrc/*.cuh``, and is built at first use in a process: nothing is compiled
+at import. ``-Xptxas -v`` makes ptxas report
 registers, shared memory and spills; the report is kept next to the library
 as ``<name>-<hash>.log``.
 """
@@ -51,7 +52,10 @@ def build(name: str) -> Path:
     """Compile csrc/<name>.cu unless the library for this exact source exists;
     returns the library's path."""
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    # the headers every source may include: an edited header must not load a stale library
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode())
+    digest = digest.hexdigest()[:16]
     out = BUILD_DIR / f"{name}-{digest}.so"
     if out.exists():
         return out

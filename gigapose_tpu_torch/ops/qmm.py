@@ -46,6 +46,9 @@ _LN_EPS = 1e-6
 # element in shared memory, for the head width of ViT-S/B/L/g
 MAX_TOKENS = 320
 HEAD_DIM = 64
+# the row prologue holds a row in registers: at most 256 threads x 8 vectors
+# of 16 bytes, 8192 f32 values
+MAX_WIDTH = 8192
 _MODE_F32, _MODE_RES, _MODE_GELU, _MODE_BF16 = 0, 1, 2, 3
 _X_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -176,8 +179,10 @@ def _call(fn, *args, what: str) -> None:
 
 
 def _check(dev: torch.device, name: str, t: torch.Tensor, dtypes, shape) -> None:
-    """Device, dtype, shape and layout of one kernel argument; weights (int8,
-    2-D) must be K-contiguous, everything else contiguous."""
+    """Device, dtype, shape, layout and alignment of one kernel argument;
+    weights (int8, 2-D) must be K-contiguous, everything else contiguous, and
+    all of them 16-byte aligned: the kernels read rows as 16-byte vectors,
+    and the int8 operands through TMA, which takes no other start."""
     if t.device != dev:
         raise ValueError(f"{name} is on {t.device}, x on {dev}")
     if t.dtype not in dtypes:
@@ -190,6 +195,9 @@ def _check(dev: torch.device, name: str, t: torch.Tensor, dtypes, shape) -> None
                              "as quantize_weight returns it")
     elif not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must start at a 16-byte aligned address, not a view "
+                         "that starts inside a 16-byte block")
 
 
 def _f32(*names_shapes):
@@ -247,8 +255,11 @@ def _check_x(x: torch.Tensor, what: str) -> str:
 
 def _check_width(K: int) -> None:
     if K % 16:
-        raise ValueError(f"the int8 GEMM reads rows in 16-byte chunks: K={K} must be a "
+        raise ValueError(f"the kernels read rows as 16-byte vectors: K={K} must be a "
                          "multiple of 16")
+    if K > MAX_WIDTH:
+        raise ValueError(f"the row prologue holds a row in registers: K={K} must be at "
+                         f"most {MAX_WIDTH}")
 
 
 # ------------------------------------------------------------------ wrappers

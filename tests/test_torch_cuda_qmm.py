@@ -8,8 +8,11 @@ decision is taken in the fixture, never at import). Imports no jax:
 
 Tolerances. Given the same int8 rows the kernels are exact: int32 sums, and
 the epilogue rounds each product and sum as the plain version does. So qmm
-without LayerNorm at K <= 1024 is bit-equal, and the GELU and bf16
-epilogues alone are within 2 ulps. The attention core alone, on the same
+without LayerNorm at K <= 1024 is bit-equal, the GEMM's f32 and residual
+epilogues alone are bit-equal at every K (against the exact dot beyond
+K = 1024, where the plain f32 sums round), and its GELU and bf16 epilogues
+alone are within 2 ulps. The row prologue alone is equal without LayerNorm
+and within one step with it. The attention core alone, on the same
 bf16 qkv, differs only by the order of its f32 sums and the rare bf16
 rounding of p that this flips: CORE limits. Elsewhere the two sides round
 ulps apart before a quantization (LN means, tanh, the attention's f32 sums
@@ -141,6 +144,74 @@ def test_gemm_epilogues_match_plain(dev, mode, shape):
     assert ulps <= 2.0
 
 
+def _dot_exact(xq, wq):
+    """The int8 dot at any K: integer products summed in f64, exact below
+    2**53, rounded once to f32 as the kernel converts its int32 sums."""
+    return torch.matmul(xq.double(), wq.double()).float()
+
+
+@pytest.mark.parametrize("mode", ["f32", "res", "gelu", "bf16"])
+@pytest.mark.parametrize("N", [97, 200, 1024, 3072])
+@pytest.mark.parametrize("K", [16, 208, 1024, 4096])
+@pytest.mark.parametrize("T", [1, 63, 300, 8224])
+def test_gemm_matches_plain(dev, T, K, N, mode):
+    """The GEMM alone, each epilogue mode, on the plain version's int8 rows,
+    against Q._dot_i8(xq, wq) * xs * ws + b: T ragged against the 128-row
+    tiles, N against the 128-column tiles and the 16-byte stores (97), K
+    against the 128-deep k-blocks (16, 208). The plain f32 sums are exact at
+    K <= 1024; at K = 4096 the reference takes the exact dot. f32 and
+    residual bit-equal, GELU and bf16 within 2 ulps."""
+    g = torch.Generator(device=dev).manual_seed(7 * T + 3 * K + N)
+    xq, xs = Q._quant_rows(torch.randn((T, K), generator=g, device=dev))
+    wq, ws = Q.quantize_weight(torch.randn((K, N), generator=g, device=dev) * 0.05)
+    b = torch.randn((1, N), generator=g, device=dev) * 0.1
+    res = torch.randn((T, N), generator=g, device=dev) if mode == "res" else None
+    ls = torch.randn((1, N), generator=g, device=dev) * 0.3 if mode == "res" else None
+    y = (Q._dot_i8(xq, wq) if K <= 1024 else _dot_exact(xq, wq)) * xs * ws + b
+    code = dict(f32=Q._MODE_F32, res=Q._MODE_RES, gelu=Q._MODE_GELU, bf16=Q._MODE_BF16)[mode]
+    out = torch.empty((T, N), dtype=torch.bfloat16 if mode == "bf16" else torch.float32,
+                      device=dev)
+    before = Q._gemm.launches[code]
+    Q._gemm(xq, xs, wq, ws, b, out, code, res, ls)
+    assert Q._gemm.launches[code] == before + 1
+    torch.cuda.synchronize()
+    if mode == "f32":
+        assert torch.equal(out, y)
+    elif mode == "res":
+        assert torch.equal(out, res + y * ls)
+    elif mode == "gelu":
+        assert _ulps(out, Q._gelu_tanh(y), 24) <= 2.0
+    else:
+        assert _ulps(out, y.to(torch.bfloat16), 8) <= 2.0
+
+
+@pytest.mark.parametrize("ln", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K", [16, 208, 1024, 4096])
+def test_row_prologue_matches_plain(dev, K, dtype, ln):
+    """The row prologue alone (one warp per row up to 256 vectors of 16
+    bytes, one CTA per row above), T ragged against its 8 rows per CTA.
+    Without LayerNorm the int8 rows and scales are equal (absmax takes no
+    order); with it the mean's order may flip an int8 by one step, and the
+    scales agree within 1e-6 relative."""
+    T = 300
+    x = _mk(dev, (T, K), 60 + K).to(dtype)
+    g = _mk(dev, (1, K), 61).abs() + 0.5 if ln else None
+    be = _mk(dev, (1, K), 62, 0.2) if ln else None
+    before = Q._quantize_rows.launches
+    xq, xs = Q._quantize_rows(x, g, be)
+    assert Q._quantize_rows.launches == before + 1
+    xf = x.float()
+    pq, ps = Q._quant_rows(Q._ln(xf, g, be) if ln else xf)
+    torch.cuda.synchronize()
+    ps = ps.reshape(-1)
+    if not ln:
+        assert torch.equal(xq, pq) and torch.equal(xs, ps)
+    else:
+        assert int((xq.int() - pq.int()).abs().max()) <= 1
+        assert float(((xs - ps).abs() / ps).max()) <= 1e-6
+
+
 def test_qmm_bf16_input(dev):
     x = _mk(dev, (77, 128), 8).to(torch.bfloat16)
     wq, ws, b = _weight(dev, 128, 64, 9)
@@ -254,6 +325,18 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
             Q.qmm(**kw)
     with pytest.raises(ValueError, match="multiple of 16"):
         Q.qmm(_mk(dev, (8, 40), 42), *_weight(dev, 40, 32, 43))
+    with pytest.raises(ValueError, match="at most"):  # the prologue's row in registers
+        Q.qmm(_mk(dev, (2, Q.MAX_WIDTH + 16), 53), *_weight(dev, Q.MAX_WIDTH + 16, 16, 54))
+    # views that start inside a 16-byte block: TMA and the 16-byte row loads
+    # take none; an int8 weight one byte in, and x one float in
+    wq_off = torch.empty(64 * 32 + 1, dtype=torch.int8, device=dev)[1:].view(32, 64).t()
+    x_off = torch.empty(8 * 64 + 1, device=dev)[1:].view(8, 64)
+    assert wq_off.t().is_contiguous() and x_off.is_contiguous()
+    for kw in (dict(wq=wq_off.copy_(wq)), dict(x=x_off.copy_(x))):
+        args = dict(x=x, wq=wq, ws=ws, bias=b)
+        args.update(kw)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            Q.qmm(**args)
     with pytest.raises(ValueError, match="pairs"):
         Q.qmm(x, wq, ws, b, ln_gamma=_mk(dev, (1, 64), 44))
     C = 96  # hd = 48: the kernel takes hd = 64 only
