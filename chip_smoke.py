@@ -53,7 +53,22 @@ inputs, twice: with the bf16 AE (`serving_quant=off`) and with the int8 AE
    in both precisions at B = 4, 8, 16, 32;
 9. the whole coarse forward at B=32 (a request of 32 detections through
    prepare_batch and the estimator) on both paths, on the host clock around
-   work that ends in synchronize, with its stages from CUDA events.
+   work that ends in synchronize, with its stages from CUDA events;
+10. the CLI on the card: a BOP dataset written with the port's PNG and RLE
+   encoders, rows filtered as real PNG writers filter them (per row the
+   least-cost filter, encode_png's "adaptive"): 2 objects x 162 templates,
+   CLI_IMAGES test images of 3-10 detections, CNOS detections, localization
+   targets; through `gigapose_tpu_torch.cli.main` at model=large, with the
+   bf16 AE and the int8 AE, each run cold (decoding the template PNGs) and
+   twice from the onboarding cache (the same csv, time column aside), the
+   two AEs alternating; per run the launch counts (one matching launch per
+   forward of at most 4 detections, the int8 kernels per AE call), and on
+   the cold runs the csvs' rows and poses and the npz batches against the
+   estimator called directly; one [cli] line per run (onboarding s/object,
+   per-image latency p50 / p90, images/s, detections/s, the host's decoding
+   share and ms per image), the spread over each AE's three runs and the
+   int8 / bf16 ratios per pair of runs; the PNG decode time of one 480x640
+   image per row filter.
 
 Every kernel count is set to 0 just before a path is driven and read just
 after; launches made to compare a kernel with its plain version are not
@@ -71,16 +86,25 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
+import os.path as osp
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+import zlib
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from gigapose_tpu_torch import cli
+from gigapose_tpu_torch.dataloader import bop_io
+from gigapose_tpu_torch.dataloader.png import decode_png, encode_png
+from gigapose_tpu_torch.dataloader.test_set import InferenceDataset
 from gigapose_tpu_torch.kernels.build import build, load_library
 from gigapose_tpu_torch.lib3d.icosphere import template_object_poses
 from gigapose_tpu_torch.models import vit_int8 as v8
@@ -126,6 +150,15 @@ WIRING_MOVED_COS = 0.9
 TOKENS = 257  # ViT-L/14 at 224 x 224: CLS + 16 x 16 patches, not padded
 INT8_COS_MIN = 0.99
 KERNELS = ("fused_matching", "qmm")
+# phase 10: test images, detections per test image (image i has
+# CLI_DETECTIONS[i % 6]), and the CLI's chunk (test.yaml's
+# max_num_dets_per_forward)
+CLI_IMAGES = 200
+CLI_DETECTIONS = (3, 5, 7, 10, 4, 8)
+CLI_CHUNK = 4
+# the CLI's poses against the estimator called directly: the CPU slice
+# test's tolerance (tests/test_torch_pipeline.py)
+CLI_POSE_TOL = dict(rtol=1e-4, atol=1e-3)
 # published dense peaks of an H100 SXM at 700 W (NVIDIA's data sheet): the
 # least time of a kernel is the larger of its operations over the peak of
 # their type and its bytes (each input read once, each output written once)
@@ -536,6 +569,17 @@ def counts() -> dict:
                 gemm_gelu=gemm[Q._MODE_GELU], gemm_bf16=gemm[Q._MODE_BF16])
 
 
+def expected_counts(forwards: int, depth: int = 0, int8_ae_calls: int = 0) -> dict:
+    """Launches of every kernel after `forwards` coarse forwards on a bf16
+    store, `int8_ae_calls` of them (and of onboarding's AE calls) through
+    the int8 AE of `depth` blocks."""
+    n = int8_ae_calls
+    return dict(fused_matching=forwards, qmm=2 * depth * n, qmm_mlp=depth * n,
+                qmm_attn_block=depth * n, match_bf16=forwards, match_f32=0,
+                row_prologue=4 * depth * n, attention_core=depth * n, gemm_f32=0,
+                gemm_residual=2 * depth * n, gemm_gelu=depth * n, gemm_bf16=depth * n)
+
+
 def onboard(est, templates, dev, tag):
     poses = [template_object_poses(1).astype(np.float32)] * len(templates)
     for rnd in ("cold", "warm"):  # the cold call includes cuBLAS / cuDNN set-up
@@ -657,14 +701,15 @@ def template_rgbas(seed: int, num_views: int = NUM_VIEWS) -> np.ndarray:
 
 
 def make_scene(rng, templates, pasted, num_others):
-    """One 480x640 image: noise background, `num_others` (<= 5) textured
+    """One 480x640 image: noise background, `num_others` (<= 14) textured
     rectangles around the border, and template view `pasted=(obj, view)`
     pasted unscaled at its own pixels, so its crop equals that template's
     crop. -> (rgb, masks, boxes, 1-based labels, K, index of the pasted
     detection)."""
     rgb = rng.integers(0, 256, (H, W, 3)).astype(np.uint8)
     masks, boxes, labels = [], [], []
-    spots = [(10, 10), (530, 10), (10, 370), (530, 370), (270, 5)]
+    spots = [(10, 10), (530, 10), (10, 370), (530, 370), (270, 5), (120, 10), (420, 10),
+             (120, 375), (420, 375), (270, 375), (10, 130), (10, 240), (530, 130), (530, 240)]
     for x0, y0 in spots[:num_others]:
         w, h = int(rng.integers(60, 100)), int(rng.integers(60, 100))
         rgb[y0:y0 + h, x0:x0 + w] = rng.integers(0, 256, (h, w, 3))
@@ -725,19 +770,263 @@ def phase_forward_b32(paths, scene, dev) -> dict:
     return out
 
 
-def kernel_records(record, qrec, krec, main_stats, bf16_counts, int8_counts, forwards):
+def cli_detections(im: int) -> int:
+    return CLI_DETECTIONS[im % len(CLI_DETECTIONS)]
+
+
+def write_bop_dataset(root: str, templates, rng) -> list:
+    """A BOP dataset named tudl under root/datasets, written with the port's
+    PNG and RLE encoders, every PNG with adaptive row filters: the templates
+    (2 objects x 162 RGBA views, poses from the icosphere), a test scene of
+    CLI_IMAGES 480x640 images (make_scene: one template pasted unscaled,
+    the other detections textured rectangles), the CNOS detections with
+    random scores, and the localization targets (every instance of the
+    pasted object; one fewer of the other object in odd images). -> per
+    image (pasted (obj, view), its box, the targets)."""
+    ds = osp.join(root, "datasets")
+    tdir = osp.join(ds, "templates", "tudl")
+    os.makedirs(osp.join(tdir, "object_poses"))
+    for o, rgbas in enumerate(templates):
+        odir = osp.join(tdir, f"{o + 1:06d}")
+        os.makedirs(odir)
+        for v, rgba in enumerate(rgbas):
+            with open(osp.join(odir, f"{v:06d}.png"), "wb") as f:
+                f.write(encode_png(rgba.transpose(1, 2, 0), "adaptive"))
+        np.save(osp.join(tdir, "object_poses", f"{o + 1:06d}.npy"), template_object_poses(1))
+    sdir = osp.join(ds, "tudl", "test", "000001")
+    os.makedirs(osp.join(sdir, "rgb"))
+    cams, dets, targets, info = {}, [], [], []
+    for im in range(CLI_IMAGES):
+        pasted = (im % 2, int(rng.integers(0, NUM_VIEWS)))
+        rgb, masks, boxes, labels, K, _ = make_scene(rng, templates, pasted,
+                                                     cli_detections(im) - 1)
+        with open(osp.join(sdir, "rgb", f"{im:06d}.png"), "wb") as f:
+            f.write(encode_png(rgb, "adaptive"))
+        cams[str(im)] = {"cam_K": K.reshape(-1).tolist(), "depth_scale": 1.0}
+        for m, (x0, y0, x1, y1), lab in zip(masks, boxes, labels):
+            dets.append({"scene_id": 1, "image_id": im, "category_id": int(lab),
+                         "score": float(rng.uniform(0.3, 1.0)),
+                         "bbox": [int(x0), int(y0), int(x1 - x0), int(y1 - y0)],
+                         "segmentation": bop_io.rle_encode(m), "time": 0.1})
+        im_targets = []
+        for obj in sorted(set(labels.tolist())):
+            count = int((labels == obj).sum())
+            keep = count if obj == pasted[0] + 1 or im % 2 == 0 else max(1, count - 1)
+            im_targets.append({"scene_id": 1, "im_id": im, "obj_id": obj, "inst_count": keep})
+        targets += im_targets
+        info.append((pasted, boxes[-1].tolist(), im_targets))
+    bop_io.save_json(osp.join(sdir, "scene_camera.json"), cams)
+    det_dir = osp.join(ds, "default_detections", "core19_model_based_unseen", "cnos-fastsam")
+    os.makedirs(det_dir)
+    bop_io.save_json(osp.join(det_dir, "cnos-fastsam_tudl-test_chip_smoke.json"), dets)
+    bop_io.save_json(osp.join(ds, "tudl", "test_targets_bop19.json"), targets)
+    return info
+
+
+def png_decode_times(templates) -> dict:
+    """Host ms to decode one 480x640 image (median of 5): a template (RGBA)
+    written with filter 0, with Paeth rows, with a random filter per row and
+    with adaptive filters (what write_bop_dataset writes), and a test image
+    (RGB, adaptive). Also the share of each adaptive image's rows that are
+    Average or Paeth rows, which the decoder takes as a wavefront."""
+    rgba = templates[0][0].transpose(1, 2, 0)
+    rgb = make_scene(np.random.default_rng(SEED + 91), templates, (0, 0), 5)[0]
+    rng = np.random.default_rng(SEED + 90)
+    out = {}
+    for name, img, filt in (("filter0", rgba, 0), ("paeth", rgba, 4),
+                            ("mixed", rgba, rng.integers(0, 5, H)),
+                            ("adaptive", rgba, "adaptive"), ("scene_adaptive", rgb, "adaptive")):
+        data = encode_png(img, filt)
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            got = decode_png(data)
+            times.append((time.perf_counter() - t0) * 1e3)
+        check(np.array_equal(got, img), f"PNG {name} round trip")
+        out[f"{name}_ms"] = float(np.median(times))
+        if isinstance(filt, str):  # adaptive: the filter byte that opens each row
+            rows = np.frombuffer(zlib.decompress(data[41:-16]), np.uint8).reshape(H, -1)
+            out[f"{name}_avg_paeth_rows"] = float((rows[:, 0] >= 3).mean())
+    return out
+
+
+def csv_rows(path: str):
+    """The csv's lines with the time column (the run's own clock) dropped."""
+    with open(path) as f:
+        return [line.split(",")[:6] + line.split(",")[7:] for line in f.read().splitlines()]
+
+
+def cli_run(root: str, args, tag: str):
+    """One cli.main run with every kernel count set to 0 just before it and
+    read just after -> (runner, counts, csv paths)."""
+    reset_counts()
+    runner = cli.main([f"machine.root_dir={root}", "test_dataset_name=tudl", "model=large",
+                       f"run_id={tag}", "onboarding_cache=phase10"] + args)
+    torch.cuda.synchronize()
+    launched = counts()
+    pred = osp.join(root, "results", f"large_{tag}", "predictions")
+    name = f"large-pbrreal-rgb-mmodel_tudl-test_{tag}"
+    return runner, launched, (osp.join(pred, name + ".csv"),
+                              osp.join(pred, name + "MultiHypothesis.csv"))
+
+
+def check_cli_outputs(runner, paths, info, root, dev, tag) -> dict:
+    """The csvs' rows, rotations and translations; the npz batches against
+    the runner's estimator and store called directly (prepare_batch, chunks
+    of CLI_CHUNK): view ids exact, poses within CLI_POSE_TOL; each pasted
+    detection kept and retrieving its view with sim > 0.9."""
+    top1 = bop_io.load_bop_csv(paths[0])
+    multi = bop_io.load_bop_csv(paths[1], extra_column="instance_id")
+    want_rows = sum(t["inst_count"] for _, _, targets in info for t in targets)
+    check(len(top1) == want_rows, f"{tag}: {len(top1)} top-1 rows, {want_rows} target instances")
+    per_instance = np.bincount([int(r["instance_id"]) for r in multi], minlength=want_rows)
+    check(len(multi) == 5 * want_rows and (per_instance == 5).all(),
+          f"{tag}: not 5 hypotheses per instance")
+    for r in multi:
+        check(np.abs(r["R"] @ r["R"].T - np.eye(3)).max() <= 1e-4, f"{tag}: R not orthonormal")
+        check(bool(np.isfinite(r["t"]).all()), f"{tag}: t not finite")
+    est, store = runner.estimator, runner.store
+    pred_dir = osp.dirname(paths[0])
+    rows, sims, worst, images = [], [], 0.0, 0
+    for idx, (image, (pasted, box, _)) in enumerate(
+            zip(InferenceDataset(osp.join(root, "datasets"), "tudl"), info)):
+        images += 1
+        N = len(image.labels)
+        got = {"poses": [], "scores": [], "view_ids": [], "sim_scores": []}
+        for s in range(0, N, CLI_CHUNK):
+            sl = slice(s, min(s + CLI_CHUNK, N))
+            p = est(store, prepare_batch(image.rgb, image.masks[sl], image.boxes_xyxy[sl],
+                                         image.labels[sl], image.K, dev))
+            for f, out in got.items():
+                out.append(getattr(p, f)[: sl.stop - s].float().cpu().numpy())
+        got = {f: np.concatenate(v) for f, v in got.items()}
+        sel, _ = runner.filter_localization(image, got["scores"][:, 0].astype(np.float64))
+        with np.load(osp.join(pred_dir, f"{idx:06d}.npz")) as npz:
+            check(np.array_equal(npz["view_ids"], got["view_ids"][sel]), f"{tag}: view ids differ")
+            check(np.allclose(npz["poses"], got["poses"][sel], **CLI_POSE_TOL),
+                  f"{tag}: CLI poses differ from the estimator's")
+            worst = max(worst, float(np.abs(npz["poses"] - got["poses"][sel]).max()))
+        j = int(np.nonzero((image.boxes_xyxy == box).all(1))[0][0])
+        ids = got["view_ids"][j].tolist()
+        check(j in sel and pasted[1] in ids, f"{tag}: pasted view {pasted} not retrieved: {ids}")
+        sims.append(float(got["sim_scores"][j][ids.index(pasted[1])]))
+        check(sims[-1] > 0.9, f"{tag}: pasted view {pasted} sim {sims[-1]}")
+        rows += [got["poses"][d] for d in sel]
+    check(images == len(info), f"{tag}: {images} images, {len(info)} written")
+    for r, (i, k) in zip(multi, ((i, k) for i in range(len(rows)) for k in range(5))):
+        check(np.allclose(r["R"], rows[i][k][:3, :3], **CLI_POSE_TOL)
+              and np.allclose(r["t"].reshape(3), rows[i][k][:3, 3], **CLI_POSE_TOL),
+              f"{tag}: csv row {i}/{k} differs from the estimator's pose")
+    return dict(rows=len(top1), planted_sim_min=min(sims), pose_max_abs_diff=worst)
+
+
+def npz_time_ms(path: str) -> float:
+    """An npz batch's per-image latency (the runner's own `time` field), ms."""
+    with np.load(path) as npz:
+        return float(npz["time"][0]) * 1e3
+
+
+# phase 10's runs: (tag, AE, from the onboarding cache); the AEs alternate,
+# and each AE is run cold once (its onboarding decodes the template PNGs)
+# and twice from the cache
+CLI_RUNS = (("bf16", "bf16", False), ("int8", "int8", False),
+            ("int8_cached", "int8", True), ("bf16_cached", "bf16", True),
+            ("bf16_cached2", "bf16", True), ("int8_cached2", "int8", True))
+CLI_PAIRS = (("int8", "bf16"), ("int8_cached", "bf16_cached"), ("int8_cached2", "bf16_cached2"))
+
+
+def phase_cli(templates, dev, smi) -> dict:
+    """10. The CLI on the card: a BOP dataset on disk through cli.main at
+    model=large, the runs of CLI_RUNS (cold: no onboarded store and no pixel
+    cache of the templates); launch counts per run; the cold runs' outputs
+    against the estimator called directly and each cached run's csv against
+    its AE's cold run; latency, throughput, onboarding and the host's
+    decoding per run, the spread over each AE's runs and the int8 / bf16
+    ratios per pair of runs."""
+    record = {"png": png_decode_times(templates)}
+    log("png", shape="480x640", **{k: f"{v:.4g}" for k, v in record["png"].items()})
+    quant = {"bf16": "model.serving_quant=off", "int8": "model.serving_quant=int8"}
+    runs, image_ms, csvs = {}, {}, {}
+    with tempfile.TemporaryDirectory(prefix="gigapose_cli_") as root:
+        t0 = time.perf_counter()
+        info = write_bop_dataset(root, templates, np.random.default_rng(SEED + 11))
+        detections = sum(cli_detections(im) for im in range(CLI_IMAGES))
+        log("bop_dataset", images=len(info), detections=detections,
+            templates=f"{len(templates)}x{NUM_VIEWS}", write_s=f"{time.perf_counter() - t0:.2f}")
+        forwards = sum(-(-cli_detections(im) // CLI_CHUNK) for im in range(CLI_IMAGES))
+        onboard_calls = len(templates) * -(-NUM_VIEWS // 64)  # onboard_object's chunk of 64
+        for tag, precision, cached in CLI_RUNS:
+            if not cached:  # a cold run decodes the template PNGs
+                shutil.rmtree(osp.join(root, "datasets", "templates", "tudl", "preprocessed"),
+                              ignore_errors=True)
+            runner, launched, paths = cli_run(root, [quant[precision]], tag)
+            check(runner.timing["onboard_cached"] == cached, f"{tag}: onboarding cache")
+            check(runner.timing["forwards"] == forwards, f"{tag}: {runner.timing['forwards']} "
+                  f"forwards, {forwards} expected")
+            int8 = type(runner.estimator.ae_net).__name__ == "AENetInt8"
+            check(int8 == (precision == "int8"), f"{tag}: AE {type(runner.estimator.ae_net)}")
+            depth = len(runner.estimator.ae_net.blocks) if int8 else 0
+            want = expected_counts(forwards, depth,
+                                   forwards + (0 if cached else onboard_calls) if int8 else 0)
+            check(launched == want, f"{tag}: launches {launched}, expected {want}")
+            if cached:  # the cold run of this AE was held against the estimator
+                for a, b in zip(csvs[precision], paths):
+                    check(csv_rows(a) == csv_rows(b), f"{tag}: the cached run wrote another csv")
+                stats = {}
+            else:
+                stats = check_cli_outputs(runner, paths, info, root, dev, tag)
+            csvs[tag] = paths
+            image_ms[tag] = np.array([npz_time_ms(osp.join(osp.dirname(paths[0]), f"{i:06d}.npz"))
+                                      for i in range(CLI_IMAGES)])
+            t = runner.timing
+            runs[tag] = dict(
+                onboard_s_per_object=t["onboard_s"] / t["objects"],
+                image_ms_p50=float(np.percentile(image_ms[tag], 50)),
+                image_ms_p90=float(np.percentile(image_ms[tag], 90)),
+                images_per_s=t["images"] / t["run_s"], detections_per_s=t["detections"] / t["run_s"],
+                decode_share=t["decode_s"] / t["run_s"],
+                decode_ms_per_image=t["decode_s"] / t["images"] * 1e3, run_s=t["run_s"],
+                images=t["images"], detections=t["detections"], forwards=t["forwards"], **stats,
+                launches=launched)
+            log("cli", run=tag, **{k: (f"{v:.4g}" if isinstance(v, float) else v)
+                                   for k, v in runs[tag].items() if k != "launches"},
+                card=repr(smi))
+            del runner
+            torch.cuda.empty_cache()
+    record["runs"], record["spread"] = runs, {}
+    for precision in ("bf16", "int8"):
+        mine = [runs[tag] for tag, p, _ in CLI_RUNS if p == precision]
+        spread = {k: [min(r[k] for r in mine), max(r[k] for r in mine)]
+                  for k in ("image_ms_p50", "image_ms_p90", "images_per_s", "decode_share")}
+        record["spread"][precision] = spread
+        log("cli_spread", ae=precision, runs=len(mine),
+            **{k: "{:.4g}-{:.4g}".format(*v) for k, v in spread.items()})
+    record["int8_over_bf16"] = [dict(
+        runs=f"{a}/{b}", image_ms_p50=runs[a]["image_ms_p50"] / runs[b]["image_ms_p50"],
+        image_ms_p90=runs[a]["image_ms_p90"] / runs[b]["image_ms_p90"],
+        images_per_s=runs[a]["images_per_s"] / runs[b]["images_per_s"],
+        per_image_median=float(np.median(image_ms[a] / image_ms[b]))) for a, b in CLI_PAIRS]
+    for r in record["int8_over_bf16"]:
+        log("cli_int8_over_bf16", **{k: (f"{v:.4g}" if isinstance(v, float) else v)
+                                     for k, v in r.items()})
+    return record
+
+
+def kernel_records(record, qrec, krec, main_stats, bf16_counts, int8_counts, forwards, cli_rec):
     """One entry per hand-written kernel (and per chain that ports a TPU
     kernel): launches in the main path's runs, error against the plain
     version, times, bound and yardstick ("library_ms" where one PyTorch call
     computes the same function, "partial_library_ms" where it computes only
-    part of it)."""
+    part of it); launches_cli: the launches in each CLI run of phase 10."""
     mean = lambda xs: float(np.mean(xs))
     kernels = []
+    cli_runs = {run: r["launches"] for run, r in cli_rec["runs"].items()}
 
-    def add(name, source, replaces, launches, **fields):
+    def add(name, source, replaces, launches, key, **fields):
         entry = dict(name=name, route="cuda", source=f"gigapose_tpu_torch/csrc/{source}",
                      replaces=replaces, launches=launches,
-                     launches_per_forward=launches / forwards, library_ms=None)
+                     launches_per_forward=launches / forwards, library_ms=None,
+                     launches_cli={run: n[key] for run, n in cli_runs.items()})
         entry.update(fields)
         entry["bound_share"] = entry["bound_ms"] / entry["ms"]
         kernels.append(entry)
@@ -747,13 +1036,13 @@ def kernel_records(record, qrec, krec, main_stats, bf16_counts, int8_counts, for
         r = record[f"serving_{dt}"]
         err = max(r["max_abs_err"], main_stats["max_abs_err"]) if dt == "bfloat16" \
             else r["max_abs_err"]
-        add(f"fused_matching_{dt}", "fused_matching.cu", pallas, bf16_counts[key],
+        add(f"fused_matching_{dt}", "fused_matching.cu", pallas, bf16_counts[key], key,
             on_main_path=dt == "bfloat16", max_abs_err=err, ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             partial_library_ms=r["partial_library_ms"])
     a = krec["attention"]
     add("attention_core", "qmm.cu", f"{qmm_py}:235", int8_counts["attention_core"],
-        on_main_path=True, **a)
+        "attention_core", on_main_path=True, **a)
     errs = {Q._MODE_BF16: qrec["gemm_bf16_qkv"]["max_abs_err"],
             Q._MODE_GELU: qrec["gemm_gelu_fc1"]["max_abs_err"],
             Q._MODE_RES: max(qrec["qmm_proj"]["max_abs_err"], qrec["qmm_fc2"]["max_abs_err"]),
@@ -764,7 +1053,7 @@ def kernel_records(record, qrec, krec, main_stats, bf16_counts, int8_counts, for
                                   (Q._MODE_F32, "gemm_f32", 87, "gemm_f32")):
         rs = krec["gemm"][mode]
         lib = [r["partial_library_ms"] for r in rs]
-        add(name, "qmm.cu", f"{qmm_py}:{line}", int8_counts[key],
+        add(name, "qmm.cu", f"{qmm_py}:{line}", int8_counts[key], key,
             on_main_path=int8_counts[key] > 0, max_abs_err=errs[mode],
             ms=mean([r["ms"] for r in rs]), plain_ms=mean([r["plain_ms"] for r in rs]),
             bound_ms=mean([r["bound_ms"] for r in rs]), bound_by=rs[0]["bound_by"],
@@ -775,7 +1064,7 @@ def kernel_records(record, qrec, krec, main_stats, bf16_counts, int8_counts, for
                                     partial_library_ms=r["partial_library_ms"])
                     for r in rs})
     rs = krec["row_prologue"]
-    add("row_prologue", "qmm.cu", f"{qmm_py}:87", int8_counts["row_prologue"],
+    add("row_prologue", "qmm.cu", f"{qmm_py}:87", int8_counts["row_prologue"], "row_prologue",
         on_main_path=True, max_abs_err=max(r["max_abs_err"] for r in rs),
         ms=mean([r["ms"] for r in rs]), plain_ms=mean([r["plain_ms"] for r in rs]),
         bound_ms=mean([r["bound_ms"] for r in rs]), bound_by="bytes",
@@ -803,12 +1092,13 @@ def kernel_records(record, qrec, krec, main_stats, bf16_counts, int8_counts, for
         ("qmm_attn_block", 235, f"qmm_attn_block_Np{TOKENS}_masked0",
          max(v["max_abs_err"] for k, v in qrec.items() if k.startswith("qmm_attn_block"))),
     ):
-        add(name, "qmm.cu", f"{qmm_py}:{line}", int8_counts[name], on_main_path=True,
+        add(name, "qmm.cu", f"{qmm_py}:{line}", int8_counts[name], name, on_main_path=True,
             chain=True, max_abs_err=err, ms=qrec[case]["ms"], plain_ms=qrec[case]["plain_ms"],
             **chain_bounds[name])
     for k in kernels:
         log("kernel", **{f: (f"{v:.4g}" if isinstance(v, float) else v) for f, v in k.items()
-                         if f not in ("shapes", "source", "route")})
+                         if f not in ("shapes", "source", "route", "launches_cli")},
+            launches_cli=repr(k["launches_cli"]).replace(" ", ""))
     return kernels
 
 
@@ -856,8 +1146,7 @@ def main() -> int:
     scenes = [make_scene(rng, templates, p, n) for p, n in zip(planted, (2, 3, 4))]
     preds, bf16_counts = serve(est, store, scenes, planted, dev, "bf16")
     forwards = len(preds)
-    want = dict.fromkeys(bf16_counts, 0)
-    want.update(fused_matching=forwards, match_bf16=forwards)
+    want = expected_counts(forwards)
     check(bf16_counts == want, f"bf16 path launches {bf16_counts} for {forwards} forwards")
 
     # the matching kernel on the main path's own features (not counted above);
@@ -875,12 +1164,7 @@ def main() -> int:
     store8 = onboard(est8, templates, dev, "int8")
     depth = len(est8.ae_net.blocks)
     preds8, int8_counts = serve(est8, store8, scenes, planted, dev, "int8")
-    want = dict(fused_matching=forwards, qmm=2 * depth * forwards,
-                qmm_mlp=depth * forwards, qmm_attn_block=depth * forwards,
-                match_bf16=forwards, match_f32=0, row_prologue=4 * depth * forwards,
-                attention_core=depth * forwards, gemm_f32=0,
-                gemm_residual=2 * depth * forwards, gemm_gelu=depth * forwards,
-                gemm_bf16=depth * forwards)
+    want = expected_counts(forwards, depth, int8_ae_calls=forwards)
     check(int8_counts == want, f"int8 path launches {int8_counts}, expected {want}")
 
     # 7. the int8 AE's wiring, card against CPU; 8. int8 against bf16;
@@ -888,8 +1172,14 @@ def main() -> int:
     phase_int8_wiring(est8, preds8[0][1])
     phase_int8_vs_bf16(est, est8, preds8[0][1], dev)
     phase_forward_b32([("bf16", est, store), ("int8", est8, store8)], scenes[2], dev)
+    del est, est8, store, store8, preds, preds8
+    torch.cuda.empty_cache()
 
-    kernels = kernel_records(record, qrec, krec, stats, bf16_counts, int8_counts, forwards)
+    # 10. the CLI on the card: a BOP dataset on disk through cli.main
+    cli_rec = phase_cli(templates, dev, smi)
+
+    kernels = kernel_records(record, qrec, krec, stats, bf16_counts, int8_counts, forwards,
+                             cli_rec)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,0 +1,219 @@
+"""Coarse inference CLI of the port (port of test.py, same override surface).
+
+Usage:
+    python -m gigapose_tpu_torch.cli test_dataset_name=lmo run_id=0 \
+        [model=small] [device=cpu] [key=value ...]
+
+Pipeline: load config -> build the estimator (seeded random weights, or a
+reference `.ckpt` at model.checkpoint_path) -> onboard templates -> run the
+BOP test split -> write npz batches + BOP csv under
+<machine.root_dir>/results/<model>_<run_id>/predictions/.
+
+It runs on cuda:0 unless `device=` names another device (the tests pass
+`device=cpu`); with no card and no device it raises. `GIGAPOSE_TINY=1` in
+the environment builds tiny nets with seeded random weights instead of the
+configured ones (the full pipeline at a small size, as in test.py).
+
+Precision and kernels, as test.py decides them: `use_pallas_matching: auto`
+is the fused matching kernel (ops/fused_matching) on CUDA and
+match_templates on the CPU; `serving_quant: auto` is the int8 AE (ops/qmm)
+on CUDA and off on the CPU; `feature_dtype: bf16` gives a bf16 store.
+
+Not served yet, and refused with the ROADMAP item to look up: multi-process
+runs (GIGAPOSE_COORDINATOR / GIGAPOSE_DISTRIBUTED) and store_shards > 1
+(A14), rendering missing templates from CAD models (A13 / A15), an orbax
+checkpoint directory (A12), int8 IST (serving_quant_ist, A11), the
+retrieval plots of vis_every (A9: they draw with PIL). An override whose key
+the CLI does not read (one of test.py's training or loader options) raises
+ValueError: it would change nothing.
+"""
+
+from __future__ import annotations
+
+import os
+import os.path as osp
+import sys
+from typing import Optional
+
+import torch
+
+from gigapose_tpu_torch.dataloader.test_set import InferenceDataset
+from gigapose_tpu_torch.models.ae_net import AENet
+from gigapose_tpu_torch.models.convert import gigapose_ckpt_to_torch
+from gigapose_tpu_torch.models.ist_net import ISTBackbone, ISTNet, Regressor
+from gigapose_tpu_torch.pipeline.estimator import (
+    EstimatorConfig,
+    GigaPoseEstimator,
+    init_random_,
+    set_f32_matmul_precision,
+)
+from gigapose_tpu_torch.pipeline.runner import CoarseRunner
+from gigapose_tpu_torch.utils.config import Config, load_config
+from gigapose_tpu_torch.utils.logging import disable_output
+
+# keys the CLI reads beside those of its config files
+OPTIONAL_KEYS = ("device", "onboarding_cache", "max_images", "vis_every",
+                 "model.serving_quant_ist")
+
+
+def _device(cfg: Config) -> torch.device:
+    """cfg.device if given, else cuda:0; no card and no device raises."""
+    if cfg.get("device"):
+        return torch.device(str(cfg.device))
+    if not torch.cuda.is_available():
+        raise RuntimeError("the CLI runs on the CUDA card by default and none is available; "
+                           "pass device=cpu to run on the CPU")
+    return torch.device("cuda", 0)
+
+
+def build_estimator(cfg: Config, tiny: bool = False) -> GigaPoseEstimator:
+    device = _device(cfg)
+    pallas = cfg.model.get("use_pallas_matching", "auto")
+    if str(pallas) == "auto":
+        pallas = device.type == "cuda"
+    est_cfg = EstimatorConfig(
+        k=cfg.model.testing_metric.k,
+        sim_threshold=cfg.model.testing_metric.sim_threshold,
+        patch_threshold=cfg.model.testing_metric.patch_threshold,
+        pixel_threshold=cfg.model.ransac.pixel_threshold,
+        use_pallas_matching=bool(pallas),
+    )
+    if tiny:  # smoke / end-to-end testing: tiny nets, the full pipeline
+        set_f32_matmul_precision()
+        gen = torch.Generator().manual_seed(0)
+        ae = init_random_(AENet("vit_tiny_test"), gen)
+        ist = init_random_(ISTNet(
+            ISTBackbone(initial_dim=16, block_dims=(16, 16, 24, 32), descriptor_size=32,
+                        input_size=256),
+            Regressor(64, hidden_dim=32),
+        ), gen)
+        est = GigaPoseEstimator(ae.to(device).eval(), ist.to(device).eval(), est_cfg)
+        return _maybe_quantize(est, cfg)
+
+    cdt = str(cfg.model.get("compute_dtype") or "bf16")
+    est = GigaPoseEstimator.create(
+        model_name=cfg.model.ae_net.backbone,
+        config=est_cfg,
+        ist_descriptor_size=cfg.model.ist_net.descriptor_size,
+        compute_dtype="bfloat16" if cdt in ("bf16", "bfloat16") else None,
+        device=device,
+    )
+    ckpt = cfg.model.get("checkpoint_path")
+    if ckpt:
+        path = str(ckpt)
+        if osp.isdir(path):
+            raise NotImplementedError(
+                f"{path}: loading an orbax train-state checkpoint is ROADMAP A12")
+        if not (path.endswith(".ckpt") and osp.isfile(path)):
+            raise FileNotFoundError(f"model.checkpoint_path={path}: no such .ckpt file")
+        ae_sd, ist_sd = gigapose_ckpt_to_torch(path)
+        est.ae_net.load_state_dict(ae_sd, strict=True)
+        est.ist_net.load_state_dict(ist_sd, strict=True)
+        print(f"Loaded torch checkpoint {path}")
+    return _maybe_quantize(est, cfg)
+
+
+def _maybe_quantize(est: GigaPoseEstimator, cfg: Config) -> GigaPoseEstimator:
+    """model.serving_quant: auto (int8 on CUDA, off on the CPU) | int8 | off.
+    Applied after checkpoint loading, so the int8 weights derive from the
+    served ones; onboarding then uses the same extractor for the store."""
+    sq = str(cfg.model.get("serving_quant", "auto")).lower()
+    if sq == "auto":
+        sq = "int8" if est.device.type == "cuda" else "off"
+    if sq == "int8":
+        ist_mode = str(cfg.model.get("serving_quant_ist", "off")).lower()
+        est.quantize_serving(ist={"int8": True, "int8-static": "static"}.get(ist_mode, False))
+        print("AE serving precision: int8 W8A8 kernels "
+              "(model.serving_quant=off for the bf16 / f32 path)")
+    return est
+
+
+def _cache_tag(cfg: Config, est: GigaPoseEstimator) -> Optional[str]:
+    """Onboarded-store cache key: int8-served features are not
+    interchangeable with float ones, so the int8 AE gets its own tag."""
+    tag = cfg.get("onboarding_cache")
+    if tag and type(est.ae_net).__name__ == "AENetInt8":
+        tag = f"{tag}-int8"
+    return tag
+
+
+def _has_key(cfg: dict, dotted: str) -> bool:
+    node = cfg
+    for k in dotted.split("."):
+        if not isinstance(node, dict) or k not in node:
+            return False
+        node = node[k]
+    return True
+
+
+def main(argv=None) -> CoarseRunner:
+    """Run the CLI on `argv` (default sys.argv[1:]); returns the runner,
+    whose `timing` holds onboarding and run times."""
+    if os.environ.get("GIGAPOSE_COORDINATOR") or os.environ.get("GIGAPOSE_DISTRIBUTED") == "1":
+        raise NotImplementedError("multi-process inference is ROADMAP A14")
+    overrides = list(argv if argv is not None else sys.argv[1:])
+    # hydra-style group selection: model=small swaps the model group file
+    group_sel = [o.split("=", 1)[1] for o in overrides if o.startswith("model=")]
+    groups = {"model": group_sel[0]} if group_sel else None
+    rest = [o for o in overrides if not o.startswith("model=")]
+    files = load_config("test", groups=groups)
+    unread = [k for k in (o.split("=", 1)[0] for o in rest if "=" in o)
+              if not (_has_key(files, k) or k in OPTIONAL_KEYS)]
+    if unread:
+        raise ValueError(f"the CLI reads no option {', '.join(unread)}")
+    cfg = load_config("test", rest, groups=groups)
+    if cfg.get("vis_every"):
+        raise NotImplementedError(
+            "vis_every: the retrieval plots draw with PIL, which the port does not use "
+            "(ROADMAP A9)")
+
+    ds = cfg.test_dataset_name
+    if not ds:
+        raise ValueError("test_dataset_name=... is required")
+    if int(cfg.get("store_shards") or 1) > 1:
+        raise NotImplementedError("store_shards > 1 (a view-sharded store) is ROADMAP A14")
+    root = osp.join(cfg.machine.root_dir, "datasets")
+    save_dir = cfg.get("save_dir") or osp.join(
+        cfg.machine.root_dir, "results", f"{cfg.model.model_name}_{cfg.run_id}"
+    )
+    os.makedirs(save_dir, exist_ok=True)
+    if cfg.get("disable_output"):
+        disable_output(osp.join(save_dir, "console.log"))
+
+    est = build_estimator(cfg, tiny=bool(int(os.environ.get("GIGAPOSE_TINY", "0"))))
+    template_dir = cfg.data.template.dir if cfg.get("data") and cfg.data.template.dir else osp.join(
+        root, "templates", ds
+    )
+    cad_dir = osp.join(root, ds, "models")
+    if not osp.isdir(template_dir) and osp.isdir(cad_dir):
+        raise NotImplementedError(
+            f"no template set at {template_dir}: rendering it from {cad_dir} needs the "
+            "rasterizer, ROADMAP A13 / A15")
+    runner = CoarseRunner.onboard(
+        est,
+        template_dir=template_dir,
+        save_dir=save_dir,
+        dataset_name=ds,
+        num_templates=cfg.data.template.num_templates if cfg.get("data") else None,
+        scale_factor=cfg.data.template.scale_factor if cfg.get("data") else 1.0,
+        max_dets_per_forward=cfg.get("max_num_dets_per_forward"),
+        feature_dtype=torch.bfloat16 if str(cfg.model.get("feature_dtype", "")) == "bf16" else None,
+        cache_tag=_cache_tag(cfg, est),
+    )
+    dataset = InferenceDataset(
+        root_dir=root, dataset_name=ds, test_setting=cfg.test_setting,
+        depth_scale=cfg.data.depth_scale if cfg.get("data") else 10.0,
+    )
+    paths = runner.run(
+        dataset,
+        test_setting=cfg.test_setting,
+        model_name=cfg.model.model_name,
+        run_id=cfg.run_id,
+        max_images=cfg.get("max_images"),
+    )
+    print("Wrote:", *paths, sep="\n  ")
+    return runner
+
+
+if __name__ == "__main__":
+    main()

@@ -8,7 +8,8 @@ are the original PyTorch ones, so one JAX random init drives both packages and
 torch -> flax -> torch is the identity (tests/test_torch_models.py).
 
 Inputs are nested dicts of array-likes (numpy, or anything np.asarray takes);
-nothing here imports jax.
+nothing here imports jax. `gigapose_ckpt_to_torch` reads the reference's
+lightning checkpoints directly.
 """
 
 from __future__ import annotations
@@ -128,3 +129,41 @@ def int8_params_flax_to_torch(qp: Mapping) -> Dict:
     out: Dict = {k: conv(k, v) for k, v in qp.items() if k != "blocks"}
     out["blocks"] = [{k: conv(k, v) for k, v in b.items()} for b in qp["blocks"]]
     return out
+
+
+# reference lightning checkpoint prefix -> (net, prefix of the port's module)
+CKPT_PREFIXES = (
+    ("ae_net.dinov2_model.", "ae", "vit."),
+    ("ist_net.backbone.", "ist", "backbone."),
+    ("ist_net.regressor.", "ist", "regressor."),
+)
+# keys of the reference layout that inference does not use: DINOv2's iBOT
+# mask token (training only)
+CKPT_UNUSED = ("ae_net.dinov2_model.mask_token",)
+
+
+def gigapose_ckpt_to_torch(path: str):
+    """Load a reference lightning `.ckpt` ({"state_dict": ...} or a bare
+    state dict with ae_net.dinov2_model.* / ist_net.backbone.* /
+    ist_net.regressor.* keys) -> (AENet state dict, ISTNet state dict). The
+    port's module names are the reference's, so keys map by prefix; a key
+    under no prefix raises ValueError, and `load_state_dict(strict=True)` on
+    the port's modules raises on a missing or unknown one. Unpickles the
+    file: load only checkpoints you trust."""
+    sd = torch.load(path, map_location="cpu", weights_only=False)
+    if "state_dict" in sd:
+        sd = sd["state_dict"]
+    out: Dict[str, Dict[str, torch.Tensor]] = {"ae": {}, "ist": {}}
+    unknown = []
+    for key, value in sd.items():
+        if key in CKPT_UNUSED:
+            continue
+        for prefix, net, to in CKPT_PREFIXES:
+            if key.startswith(prefix):
+                out[net][to + key[len(prefix):]] = value
+                break
+        else:
+            unknown.append(key)
+    if unknown:
+        raise ValueError(f"checkpoint keys outside the coarse nets: {unknown}")
+    return out["ae"], out["ist"]

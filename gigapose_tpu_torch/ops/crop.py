@@ -18,7 +18,9 @@ def crop_resize_affine(boxes_xyxy: torch.Tensor, target_size: int = 224) -> torc
     b = boxes_xyxy.to(torch.float32)
     w = b[..., 2] - b[..., 0]
     h = b[..., 3] - b[..., 1]
-    scale = target_size / torch.maximum(w, h)
+    # a tensor quotient: `int / tensor` is evaluated as int * (1 / tensor),
+    # 1 ulp off the correctly rounded quotient for boxes such as 120 px
+    scale = torch.full_like(w, float(target_size)) / torch.maximum(w, h)
     out_w = torch.floor(w * scale)
     out_h = torch.floor(h * scale)
     square = w == h

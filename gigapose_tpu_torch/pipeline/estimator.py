@@ -257,6 +257,11 @@ class GigaPoseEstimator:
             self.ae_net = AENetInt8.from_ae_net(self.ae_net).eval()
         return self
 
+    @property
+    def device(self) -> torch.device:
+        """The device both nets run on (that of the IST net's weights)."""
+        return next(self.ist_net.parameters()).device
+
     @torch.inference_mode()
     def __call__(self, store: TemplateStore, batch: DetectionBatch) -> CoarsePrediction:
         return coarse_forward(self.ae_net, self.ist_net, store, batch, self.config)

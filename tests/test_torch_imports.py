@@ -39,8 +39,49 @@ def test_port_imports_no_jax_pil_yaml_or_jax_package():
     assert result["leaked"] == [], result["leaked"]
     for expected in ("gigapose_tpu_torch.ops.fused_matching", "gigapose_tpu_torch.kernels.build",
                      "gigapose_tpu_torch.pipeline.estimator", "gigapose_tpu_torch.models.convert",
-                     "gigapose_tpu_torch.ops.qmm", "gigapose_tpu_torch.models.vit_int8"):
+                     "gigapose_tpu_torch.ops.qmm", "gigapose_tpu_torch.models.vit_int8",
+                     "gigapose_tpu_torch.cli", "gigapose_tpu_torch.pipeline.runner",
+                     "gigapose_tpu_torch.dataloader.png", "gigapose_tpu_torch.dataloader.bop_io",
+                     "gigapose_tpu_torch.dataloader.scene", "gigapose_tpu_torch.dataloader.test_set",
+                     "gigapose_tpu_torch.dataloader.templates_disk",
+                     "gigapose_tpu_torch.utils.config", "gigapose_tpu_torch.utils.logging",
+                     "gigapose_tpu_torch.utils.timer"):
         assert expected in result["modules"]
+
+
+CLI_SCRIPT = r"""
+import json, os, sys
+jax_dir = os.path.join(%r, "gigapose_tpu") + os.sep
+opened = []
+sys.addaudithook(lambda event, args: opened.append(str(args[0])) if event == "open" else None)
+from gigapose_tpu_torch import cli
+cli.main(sys.argv[1:])
+forbidden = %r
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in forbidden)
+print(json.dumps({"leaked": leaked,
+                  "jax_files": sorted({p for p in opened if os.path.abspath(p).startswith(jax_dir)}),
+                  "port_configs": sorted({os.path.basename(p) for p in opened if "configs" in p})}))
+"""
+
+
+def test_port_cli_run_reads_nothing_of_the_jax_package(tmp_path):
+    """A whole CLI run (GIGAPOSE_TINY, CPU) on the synthetic fixture opens no
+    file under gigapose_tpu/ (the port has its own config files) and loads
+    no forbidden module."""
+    from tests import synthetic_bop
+
+    root = synthetic_bop.build(str(tmp_path))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["GIGAPOSE_TINY"] = "1"
+    out = subprocess.run(
+        [sys.executable, "-c", CLI_SCRIPT % (str(REPO), FORBIDDEN), f"machine.root_dir={root}",
+         "test_dataset_name=tudl", "device=cpu", "data.template.num_templates=8"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    assert result == {"leaked": [], "jax_files": [],  # the hook saw the port's own files:
+                      "port_configs": ["bop.yaml", "large.yaml", "local.yaml", "test.yaml"]}
 
 
 def test_port_sources_never_import_jax():

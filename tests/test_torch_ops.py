@@ -115,6 +115,20 @@ def test_crop_resize_pad(seed, target):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+def test_crop_scale_is_the_correctly_rounded_quotient():
+    """s = T / max(w, h) is one f32 division, as numpy and the JAX package
+    compute it: `int / tensor` in torch is int * (1 / tensor), 1 ulp off for
+    a 120-px box (224 / 120), which moved whole crops by a pixel."""
+    boxes = np.array([[0, 0, 120, 120], [380, 100, 500, 220], [3, 4, 100, 101],
+                      [5, 5, 155, 60], [7, 1, 104, 33]], np.int32)
+    side = np.maximum(boxes[:, 2] - boxes[:, 0], boxes[:, 3] - boxes[:, 1]).astype(np.float32)
+    for target in (224, 56):
+        got = tcrop.crop_resize_affine(T(boxes), target)[:, 0, 0].numpy()
+        np.testing.assert_array_equal(got, np.float32(target) / side)
+        want = np.asarray(jcrop.crop_resize_affine(J(boxes), target))[:, 0, 0]
+        np.testing.assert_array_equal(got, want)
+
+
 def test_downsample_mask():
     rng = np.random.default_rng(3)
     m = (rng.uniform(size=(2, 3, 224, 224)) > 0.5).astype(np.float32)
