@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-Drives the port's coarse path at the full width of `model=large` (DINOv2
+Drives the port's coarse path, then its refinement, at the full width of
+`model=large` and of the JAX refiner (DINOv2
 ViT-L/14, the default IST backbone, bf16 compute and a bf16 template store,
 k=5, sim_threshold 0.5, patch_threshold 3, pixel_threshold 14, 162
 templates per object) with seeded random weights and numpy-synthesised
@@ -11,8 +12,9 @@ inputs, twice: with the bf16 AE (`serving_quant=off`) and with the int8 AE
 (`est.quantize_serving()`). Phases, one line each or more:
 
 1. device + build: the card, its power limit, the nvcc builds of the
-   kernels (one nvcc per source, all started together) with ptxas's
-   registers and spills per kernel (any spill fails the run);
+   kernels and the host compiler's build of the host rasterizer (one
+   compiler per source, all started together) with ptxas's registers and
+   spills per kernel (any spill fails the run);
 2. the fused matching kernels against their plain PyTorch version on
    planted worlds, at P=16 and at the serving shape B=32, V=162, P=256,
    C=1024: the wgmma kernel on a bf16 store and the CUDA-core kernel on an
@@ -69,6 +71,32 @@ inputs, twice: with the bf16 AE (`serving_quant=off`) and with the int8 AE
    share and ms per image), the spread over each AE's three runs and the
    int8 / bf16 ratios per pair of runs; the PNG decode time of one 480x640
    image per row filter.
+11. refinement on the card, in phase 10's dataset: a closed mesh per object
+   (a displaced 100 x 100-segment sphere, 19,800 faces, about 150 mm across,
+   vertex colours, binary PLY in datasets/tudl/models), and beside the
+   dataset two 224 x 224-segment spheres (99,904 faces, the top of BOP
+   models' range); on each set the rasterizer kernel (csrc/rasterizer.cu)
+   against its plain version at B = 8, 160 x 160, on seeded poses seen
+   through the refine loop's crop camera (hit masks and face ids, rgb
+   within a step, depth within an ulp) and against the host C++ renders
+   (pixels that differ, the largest difference, the JAX package's bound),
+   with its time, the plain version's, the bound of the work the function
+   needs (each face tested at the pixels of its screen bounding box) and
+   that of the kernel's brute-force work; refine_batch at full width
+   (RefinerNet 64, CoarseScorerNet 32, 160 x 160, 500 points, 5
+   iterations, keep_best_init) with the pose head and BatchNorm statistics
+   randomized, at B = 8 with the host and the device renderer on both mesh
+   sets: whole ms per batch, the host loop's phases; on the dataset's
+   meshes the card's host loop against the CPU (B = 2), the renderers
+   against each other at the same batch without keep_best_init, the device
+   renderer at B = 8 against two batches of 4, the referee's choice with
+   it, every pose moved; then the refine CLI
+   (`gigapose_tpu_torch.refine.main`) on the MultiHypothesis csv of phase
+   10's last run, 40 images, min_score 0, with each renderer: one row per
+   instance, each equal to one of its coarse hypotheses (the CLI's
+   untrained head is the identity), rasterizer launches per batch, and a
+   [refine_cli] line per run (per-image p50 / p90, images/s,
+   hypotheses/s).
 
 Every kernel count is set to 0 just before a path is driven and read just
 after; launches made to compare a kernel with its plain version are not
@@ -84,6 +112,7 @@ nvidia-smi, and the result JSON.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import os
@@ -102,6 +131,7 @@ import torch
 import torch.nn.functional as F
 
 from gigapose_tpu_torch import cli
+from gigapose_tpu_torch import refine as refine_cli
 from gigapose_tpu_torch.dataloader import bop_io
 from gigapose_tpu_torch.dataloader.png import decode_png, encode_png
 from gigapose_tpu_torch.dataloader.test_set import InferenceDataset
@@ -114,6 +144,16 @@ from gigapose_tpu_torch.ops.matching import select_top_k
 from gigapose_tpu_torch.pipeline.estimator import EstimatorConfig, GigaPoseEstimator
 from gigapose_tpu_torch.pipeline.runner import prepare_batch
 from gigapose_tpu_torch.pipeline.templates import onboard_templates
+from gigapose_tpu_torch.refiner import device_render as DR
+from gigapose_tpu_torch.refiner.ops import normalize_T
+from gigapose_tpu_torch.refiner.refiner import (
+    MeshStore,
+    RefinerConfig,
+    RenderCompareRefiner,
+    crop_prep,
+)
+from gigapose_tpu_torch.render import rasterize as RZ
+from gigapose_tpu_torch.render.mesh_io import load_mesh
 
 SEED = 0
 MODEL = "dinov2_vitl14"
@@ -149,7 +189,8 @@ WIRING_LIMITS = dict(rel_max=3e-2, rel_mean=2.5e-2, cos_gap=3e-4)
 WIRING_MOVED_COS = 0.9
 TOKENS = 257  # ViT-L/14 at 224 x 224: CLS + 16 x 16 patches, not padded
 INT8_COS_MIN = 0.99
-KERNELS = ("fused_matching", "qmm")
+KERNELS = ("fused_matching", "qmm", "rasterizer")
+HOST_SOURCES = ("rasterizer.cpp",)  # built with the host compiler
 # phase 10: test images, detections per test image (image i has
 # CLI_DETECTIONS[i % 6]), and the CLI's chunk (test.yaml's
 # max_num_dets_per_forward)
@@ -228,8 +269,8 @@ def ptxas_report(log_text: str) -> dict:
     for ln in log_text.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
-            k = re.search(r"(match_bf16|match_f32|gemm|quant_rows|attention)_kernel(I\w*?E)?",
-                          m.group(1))
+            k = re.search(r"(match_bf16|match_f32|gemm|quant_rows|attention|vertex|face|raster)"
+                          r"_kernel(I\w*?E)?", m.group(1))
             name = k.group(1) + (k.group(2) or "")
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
         if m and name:
@@ -935,14 +976,16 @@ CLI_RUNS = (("bf16", "bf16", False), ("int8", "int8", False),
 CLI_PAIRS = (("int8", "bf16"), ("int8_cached", "bf16_cached"), ("int8_cached2", "bf16_cached2"))
 
 
-def phase_cli(templates, dev, smi) -> dict:
+def phase_cli(templates, dev, smi, then=None) -> dict:
     """10. The CLI on the card: a BOP dataset on disk through cli.main at
     model=large, the runs of CLI_RUNS (cold: no onboarded store and no pixel
     cache of the templates); launch counts per run; the cold runs' outputs
     against the estimator called directly and each cached run's csv against
     its AE's cold run; latency, throughput, onboarding and the host's
     decoding per run, the spread over each AE's runs and the int8 / bf16
-    ratios per pair of runs."""
+    ratios per pair of runs. `then(root, csv)`, when given, runs last in the
+    dataset's directory with the MultiHypothesis csv of the last run; its
+    result is record["then"]."""
     record = {"png": png_decode_times(templates)}
     log("png", shape="480x640", **{k: f"{v:.4g}" for k, v in record["png"].items()})
     quant = {"bf16": "model.serving_quant=off", "int8": "model.serving_quant=int8"}
@@ -993,6 +1036,8 @@ def phase_cli(templates, dev, smi) -> dict:
                 card=repr(smi))
             del runner
             torch.cuda.empty_cache()
+        if then is not None:
+            record["then"] = then(root, csvs[CLI_RUNS[-1][0]][1])
     record["runs"], record["spread"] = runs, {}
     for precision in ("bf16", "int8"):
         mine = [runs[tag] for tag, p, _ in CLI_RUNS if p == precision]
@@ -1010,6 +1055,476 @@ def phase_cli(templates, dev, smi) -> dict:
         log("cli_int8_over_bf16", **{k: (f"{v:.4g}" if isinstance(v, float) else v)
                                      for k, v in r.items()})
     return record
+
+
+# 11. refinement on the card. Each object is a displaced latitude-longitude
+# sphere of n x n segments (2 n (n - 1) faces), about 150 mm across with
+# per-vertex colours, written as binary PLY: SPHERE_SEGMENTS gives the
+# 19,800-face meshes of the dataset (the refine CLI reads them),
+# SPHERE_SEGMENTS_LARGE 99,904 faces, the top of BOP models' 10^4-10^5,
+# which 11.3 and 11.4 also run (the device pack pads every mesh to the
+# largest, and every pixel of a render tests every face)
+SPHERE_SEGMENTS = 100
+SPHERE_SEGMENTS_LARGE = 224
+SPHERE_RADIUS_MM = 75.0
+REFINE_B = 8  # run_refinement's chunk of hypotheses
+REFINE_SIZE = (160, 160)
+REFINE_ITERS = 5
+# renders per refine_batch: the iterations, the final score and
+# keep_best_init's two renders in the init pose's crop frame
+RENDERS_PER_BATCH = REFINE_ITERS + 1 + 2
+# the rasterizer against its plain version (csrc/rasterizer.cu is built with
+# -fmad=false and rounds as the plain version does): hit masks and face ids
+# equal on all but RASTER_MISMATCH of the pixels; where both hit the same
+# face, rgb within 1 step and depth within 1 ulp
+RASTER_MISMATCH = 1e-4
+# the device rasterizer against the host C++ one: the JAX package's bound
+# (tests/test_refiner.py:test_device_render_matches_host_render)
+HOST_P99, HOST_IOU = 2.5 / 255, 0.98
+# f32 operations of the rasterizer's work (csrc/rasterizer.cu): a (pixel,
+# face) depth test 24 (the face's validity, two edge functions of 5, w2 2,
+# three inside compares, the 1/z interpolation 5, the clamp, the reciprocal,
+# the depth compare); a vertex 31 (camera transform 18, depth test,
+# projection 12); a face's set-up 29; the shading of a hit pixel 93. The
+# function needs the tests of each valid face at the pixel centres inside
+# its screen bounding box only; the kernel makes B x H x W x F of them
+RASTER_OPS = dict(test=24, vertex=31, face=29, shade=93)
+# the random pose head: std HEAD_SCALE / sqrt(features), so that the
+# untrained refiner moves each pose by a few centimetres and degrees
+HEAD_SCALE = 0.04
+REFINE_K = np.array([[572.4114, 0, 320], [0, 573.57043, 240], [0, 0, 1]], np.float32)
+# phase 11's refine_batch bounds (max |R entry| difference, max |t|
+# difference in mm, max |score| difference), each a few times the H100
+# reading (PERF.md). The card's host path against the same refiner on
+# the CPU read R 1.7e-6, t 1.0e-3 mm, score 1.8e-6: cuDNN's and the CPU's
+# convolutions sum in other orders; one render pixel flipped by that would
+# move them to about 1e-4 (tests/test_torch_refiner.py), which the bound
+# allows. The device renderer against the host one, both at B = 8, read R
+# 1.6e-4, t 0.064 mm, score 1.0e-4: the two rasterizers pick another face
+# at a few dozen pixels inside the objects' silhouettes (11.3: 67 of
+# 204,800 pixels differ, by up to 99 steps, none in the mask), and the
+# random nets carry that into the poses; the batch is not the cause (B = 8
+# against two batches of 4 read R 0, score 6e-8, held to CPU_BOUND).
+# DEVICE_BOUND is about three times that reading
+CPU_BOUND = dict(R=1e-4, t_mm=0.05, score=1e-4)
+DEVICE_BOUND = dict(R=5e-4, t_mm=0.2, score=3e-4)
+# the refine CLI with its untrained (identity) head returns the coarse poses
+CLI_REFINE_TOL = dict(R=1e-4, t_rtol=1e-4)
+REFINE_CLI_IMAGES = 40
+
+
+def write_sphere_ply(path: str, seed: int, n: int = SPHERE_SEGMENTS) -> int:
+    """A closed latitude-longitude sphere of radius about SPHERE_RADIUS_MM mm,
+    displaced by seeded waves that vanish at the poles, with colours from
+    the position, as binary little-endian PLY. -> its face count."""
+    rng = np.random.default_rng(seed)
+    amp, k = rng.uniform(0.03, 0.08, 2), rng.integers(2, 7, 3)
+    th, ph = np.meshgrid(np.linspace(0, np.pi, n + 1)[1:-1], np.linspace(0, 2 * np.pi, n,
+                                                                          endpoint=False),
+                         indexing="ij")
+    r = 1 + amp[0] * np.sin(k[0] * th) * np.cos(k[1] * ph) \
+        + amp[1] * np.sin(th) ** 2 * np.sin(k[2] * ph)
+    ring = np.stack([r * np.sin(th) * np.cos(ph), r * np.sin(th) * np.sin(ph), r * np.cos(th)], -1)
+    verts = np.concatenate([[[0, 0, 1]], ring.reshape(-1, 3), [[0, 0, -1]]]) * SPHERE_RADIUS_MM
+    cols = np.clip((verts / SPHERE_RADIUS_MM * 0.5 + 0.5) * 180 + 40
+                   + rng.normal(0, 8, verts.shape), 0, 255).astype(np.uint8)
+    j, jn = np.arange(n), (np.arange(n) + 1) % n
+    ringv = lambda i, jj: 1 + i * n + jj
+    last = 1 + (n - 1) * n
+    faces = [np.stack([np.zeros(n, int), ringv(0, j), ringv(0, jn)], 1)]
+    for i in range(n - 2):
+        a, b, c, d = ringv(i, j), ringv(i, jn), ringv(i + 1, j), ringv(i + 1, jn)
+        faces += [np.stack([a, c, b], 1), np.stack([b, c, d], 1)]
+    faces.append(np.stack([np.full(n, last), ringv(n - 2, jn), ringv(n - 2, j)], 1))
+    faces = np.concatenate(faces)
+    vrec = np.empty(len(verts), [("x", "<f4"), ("y", "<f4"), ("z", "<f4"),
+                                 ("red", "u1"), ("green", "u1"), ("blue", "u1")])
+    for c, name in enumerate("xyz"):
+        vrec[name] = verts[:, c]
+    for c, name in enumerate(("red", "green", "blue")):
+        vrec[name] = cols[:, c]
+    frec = np.empty(len(faces), [("n", "u1"), ("idx", "<i4", (3,))])
+    frec["n"], frec["idx"] = 3, faces
+    header = ("ply\nformat binary_little_endian 1.0\n"
+              f"element vertex {len(verts)}\nproperty float x\nproperty float y\nproperty float z\n"
+              "property uchar red\nproperty uchar green\nproperty uchar blue\n"
+              f"element face {len(faces)}\nproperty list uchar int vertex_indices\nend_header\n")
+    with open(path, "wb") as f:
+        f.write(header.encode() + vrec.tobytes() + frec.tobytes())
+    return len(faces)
+
+
+def random_poses(rng, B: int) -> np.ndarray:
+    """(B, 4, 4) object -> camera poses in metres: random rotations, the
+    object 0.45-0.6 m in front of the camera, near the optical axis."""
+    T = np.tile(np.eye(4, dtype=np.float32), (B, 1, 1))
+    q = rng.normal(size=(B, 4))
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    w, x, y, z = q.T
+    T[:, :3, :3] = np.stack([
+        np.stack([1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)], -1),
+        np.stack([2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w)], -1),
+        np.stack([2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)], -1)], 1)
+    T[:, :3, 3] = np.stack([rng.uniform(-0.05, 0.05, B), rng.uniform(-0.05, 0.05, B),
+                            rng.uniform(0.45, 0.6, B)], 1)
+    return T
+
+
+def ulps(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
+    _, e = torch.frexp(want)
+    return (got - want).abs() / torch.ldexp(torch.ones_like(want), e - 24)
+
+
+def raster_work(verts, faces, K, T, H: int, W: int) -> dict:
+    """The (pixel, face) tests the rasterizer's function needs on these
+    inputs (each valid face at the pixel centres inside its screen bounding
+    box) and the B x H x W x F the kernel makes."""
+    cam, scr = RZ._camera(verts, K, T)
+    bi = torch.arange(len(faces), device=faces.device)[:, None, None]
+    idx = faces.long()
+    p, z = scr[bi, idx].double(), cam[..., 2][bi, idx]  # (B, F, 3, 2), (B, F, 3)
+    (x0, y0), (x1, y1), (x2, y2) = (p[..., k, :].unbind(-1) for k in range(3))
+    area = (x1 - x0) * (y2 - y0) - (x2 - x0) * (y1 - y0)
+    valid = (area.abs() > RZ.EPS_AREA) & (z > RZ.EPS_Z).all(-1)
+    n = torch.tensor([W, H], device=p.device, dtype=p.dtype)
+    first = torch.ceil(p.amin(2) - 0.5).clamp_min(0)  # pixel i has its centre at i + 0.5
+    last = torch.minimum(torch.floor(p.amax(2) - 0.5), n - 1)
+    span = (last - first + 1).clamp_min(0)
+    return dict(tests=float((span[..., 0] * span[..., 1] * valid).sum()),
+                tests_brute=float(faces.shape[0] * faces.shape[1] * H * W))
+
+
+def raster_case(dev, mesh_paths, store, tag: str) -> dict:
+    """11.3 on one mesh set: the rasterizer kernel against its plain version
+    and against the host C++ renders (pixels that differ, the largest
+    difference in uint8 steps, the JAX package's p99 and IoU), at B = 8,
+    160 x 160, on seeded poses seen through the refine loop's crop camera;
+    its time, the plain version's, the bound of the function's work and
+    that of the kernel's brute-force work."""
+    B, (RH, RW) = REFINE_B, REFINE_SIZE
+    labels = np.array([1 + i % 2 for i in range(B)])
+    TCO = random_poses(np.random.default_rng(SEED + 12), B)
+    pts = torch.as_tensor(np.stack([store.points[l] for l in labels]), dtype=torch.float32,
+                          device=dev)
+    images = torch.zeros((B, 3, H, W), device=dev)
+    Kd = torch.as_tensor(np.repeat(REFINE_K[None], B, 0), device=dev)
+    TCO_n, _, K_crop, _ = crop_prep(images, Kd, torch.as_tensor(TCO, device=dev), pts,
+                                    REFINE_SIZE, 1.4)
+    pack = DR.build_device_meshes(mesh_paths, store.unit_to_m, dev)
+    rows = torch.as_tensor(pack.rows_for(labels), device=dev)
+    args = (pack.verts[rows], pack.faces[rows], pack.colors[rows], K_crop.contiguous(),
+            TCO_n.contiguous(), RH, RW)
+    got, want = RZ.rasterize(*args), RZ.rasterize_plain(*args)
+    torch.cuda.synchronize()
+    hit_g, hit_w = got["rgba"][..., 3] > 0, want["rgba"][..., 3] > 0
+    same = hit_g & hit_w & (got["face_id"] == want["face_id"])
+    mismatch = float(((hit_g != hit_w) | (hit_g & hit_w & ~same)).float().mean())
+    rgb_steps = int((got["rgba"][..., :3].int() - want["rgba"][..., :3].int()).abs()[same].max())
+    depth_ulps = float(ulps(got["depth"][same], want["depth"][same]).max())
+    normals_err = float((got["normals"] - want["normals"]).abs()[same].max())
+    # the host C++ raster at the same poses (mesh units: mm) and crop cameras
+    host = store.render_batch(labels, TCO_n.cpu().numpy(), K_crop.cpu().numpy(), REFINE_SIZE,
+                              out_dtype=np.uint8).astype(np.int32)
+    dev_rgb = got["rgba"][..., :3].permute(0, 3, 1, 2).int().cpu().numpy()
+    steps = np.abs(host - dev_rgb)
+    mh, md = host.sum(1) > 0, dev_rgb.sum(1) > 0
+    iou = float((mh & md).sum() / max((mh | md).sum(), 1))
+    # the object's extent in each crop: its silhouette's larger side over the crop's
+    rows_hit, cols_hit = hit_w.any(2), hit_w.any(1)
+    span = lambda m: (m.shape[1] - m.int().argmax(1) - m.flip(1).int().argmax(1)).float()
+    extent = torch.maximum(span(rows_hit) / RH, span(cols_hit) / RW)
+    stats = dict(faces=int(pack.faces.shape[1]), hit_share=float(hit_w.float().mean()),
+                 extent_min=float(extent.min()), extent_max=float(extent.max()),
+                 mismatch=mismatch, rgb_steps=rgb_steps, depth_ulps=depth_ulps,
+                 normals_max_abs_err=normals_err,
+                 host_diff_pixels=int((steps.max(1) > 0).sum()), host_max_steps=int(steps.max()),
+                 host_mask_diff_pixels=int((mh != md).sum()),
+                 host_p99=float(np.percentile(steps / 255.0, 99)), host_iou=iou)
+    check(mismatch <= RASTER_MISMATCH, f"rasterizer {tag}: hit / face id mismatch {stats}")
+    check(rgb_steps <= 1 and depth_ulps <= 1.0,
+          f"rasterizer {tag} differs from its plain version: {stats}")
+    check(stats["host_p99"] <= HOST_P99 and iou > HOST_IOU,
+          f"rasterizer {tag} against host: {stats}")
+    check(0.3 <= stats["extent_min"] and stats["extent_max"] <= 0.8,
+          f"the objects span {stats['extent_min']}-{stats['extent_max']} of the crops")
+    times = [cuda_ms(lambda: RZ.rasterize(*args), warmup=2 if i == 0 else 0, iters=1)
+             for i in range(7)]
+    work = raster_work(args[0], args[1], args[3], args[4], RH, RW)
+    F, V = pack.faces.shape[1], pack.verts.shape[1]
+    nbytes = B * (V * 3 * 4 * 2 + F * 3 * 4 + (9 + 16) * 4) + B * RH * RW * (4 + 4 + 12 + 4)
+    fixed = (RASTER_OPS["vertex"] * B * V + RASTER_OPS["face"] * B * F
+             + RASTER_OPS["shade"] * float(hit_w.sum()))
+    brute = bound(RASTER_OPS["test"] * work["tests_brute"] + fixed, "f32", nbytes)
+    rec = dict(ms=float(np.median(times)), ms_min=min(times), ms_max=max(times),
+               plain_ms=cuda_ms(lambda: RZ.rasterize_plain(*args), warmup=1, iters=1),
+               max_abs_err=max(float(rgb_steps), normals_err),
+               **bound(RASTER_OPS["test"] * work["tests"] + fixed, "f32", nbytes),
+               bound_ms_brute=brute["bound_ms"], bound_by_brute=brute["bound_by"], **work,
+               **stats)
+    log("raster", mesh=tag, B=B, size=f"{RH}x{RW}",
+        **{k: (f"{v:.4g}" if isinstance(v, float) else v) for k, v in rec.items()})
+    return rec
+
+
+def scene_images(store, labels, gts, rng) -> np.ndarray:
+    """(B, 3, 480, 640) f32 observed images: each object rendered at its
+    ground-truth pose by the host rasterizer over a noise background."""
+    out = np.empty((len(labels), 3, H, W), np.float32)
+    for i, (label, gt) in enumerate(zip(labels, gts)):
+        pose = gt.copy()
+        pose[:3, 3] /= store.unit_to_m[int(label)]
+        rgba, _ = store.rasterizers[int(label)].render(REFINE_K, pose, W, H)
+        img = rng.integers(0, 60, (H, W, 3)).astype(np.uint8)
+        fg = rgba[..., 3] > 0
+        img[fg] = rgba[..., :3][fg]
+        out[i] = img.transpose(2, 0, 1).astype(np.float32) / 255.0
+    return out
+
+
+def perturb_refiner_(ref: RenderCompareRefiner, seed: int) -> None:
+    """Seeded random pose head (the identity head leaves every pose as it
+    is) and BatchNorm statistics (mean 0 and var 1 hide a swapped mapping)."""
+    rng = np.random.default_rng(seed)
+    rnd = lambda t, a: t.copy_(torch.from_numpy(a.astype(np.float32)))
+    with torch.no_grad():
+        w = ref.refiner_net.pose_head.weight
+        rnd(w, rng.normal(0, HEAD_SCALE / np.sqrt(w.shape[1]), w.shape))
+        for net in (ref.refiner_net, ref.scorer_net):
+            for m in net.modules():
+                if isinstance(m, torch.nn.BatchNorm2d):
+                    rnd(m.running_mean, rng.normal(0, 0.1, m.num_features))
+                    rnd(m.running_var, rng.uniform(0.5, 1.5, m.num_features))
+
+
+def pose_gap(a: np.ndarray, b: np.ndarray) -> dict:
+    """Largest |R entry| and |t| (mm) difference over a batch of poses in metres."""
+    return dict(R=float(np.abs(a[:, :3, :3] - b[:, :3, :3]).max()),
+                t_mm=float(np.abs(a[:, :3, 3] - b[:, :3, 3]).max() * 1e3))
+
+
+def result_gap(a: tuple, b: tuple) -> dict:
+    """pose_gap of two refine_batch results (poses, scores), and the largest
+    |score| difference."""
+    return dict(**pose_gap(a[0], b[0]), score=float(np.abs(a[1] - b[1]).max()))
+
+
+def time_refine(r: RenderCompareRefiner, args, tag: str, smi) -> tuple:
+    """refine_batch once to warm (cuDNN's plans, the device mesh pack), then
+    3 times with every count at 0 -> (the output, the record: whole ms per
+    batch on the host clock, the host loop's phases, rasterizer launches)."""
+    B, host = len(args[2]), r.config.renderer == "host"
+    r.refine_batch(*args)
+    reset_counts()
+    RZ.rasterize.launches = 0
+    r.timing = {} if host else None
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        out = r.refine_batch(*args)
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = RZ.rasterize.launches
+    check(launches == (0 if host else 3 * RENDERS_PER_BATCH),
+          f"{tag}: {launches} rasterizer launches in 3 batches")
+    check(counts() == expected_counts(0), f"{tag}: other kernels launched")
+    check(bool(np.isfinite(out[0]).all() and np.isfinite(out[1]).all()),
+          f"{tag}: non-finite output")
+    rec = dict(batch_ms=float(np.median(times)), batch_ms_min=min(times),
+               batch_ms_max=max(times), per_hypothesis_ms=float(np.median(times)) / B,
+               launches_per_batch=launches // 3)
+    if host:  # per batch
+        rec.update({f"{k}_ms": v / 3 * 1e3 for k, v in r.timing.items()})
+        r.timing = None
+    log("refine_batch", run=tag, B=B, **{k: (f"{v:.4g}" if isinstance(v, float) else v)
+                                         for k, v in rec.items()}, card=repr(smi))
+    return out, rec
+
+
+def phase_refine(dev, mesh_paths, large_paths, smi) -> dict:
+    """11.4: refine_batch at full width (RefinerNet 64, scorer 32, 160 x
+    160, 500 points, 5 iterations, keep_best_init) at B = 8 with the head
+    and BN statistics perturbed: the host and the device renderer on the
+    card, on the dataset's meshes and on the largest ones (the whole ms per
+    batch, host clock, the result fetched; the host loop's phases); the
+    card's host loop against the CPU (B = 2); without keep_best_init the
+    device renderer against the host one at the same batch, and the device
+    renderer at B = 8 against the same hypotheses in two batches of 4 (the
+    renders are the same, only the batch size differs); every pose moved;
+    the referee's choice."""
+    B = REFINE_B
+    ref = RenderCompareRefiner.create(mesh_paths, seed=SEED, config=RefinerConfig(), device=dev)
+    perturb_refiner_(ref, SEED + 13)
+    rng = np.random.default_rng(SEED + 14)
+    labels = np.array([1 + i % 2 for i in range(B)])
+    gts = random_poses(rng, B)
+    init = gts.copy()
+    init[:, :3, 3] += rng.uniform(-0.01, 0.01, (B, 3))  # 1 cm off, and a few degrees
+    a = rng.uniform(-0.08, 0.08, (B, 3))
+    for i in range(B):
+        c, s = np.cos(a[i]), np.sin(a[i])
+        rz = np.array([[c[2], -s[2], 0], [s[2], c[2], 0], [0, 0, 1]])
+        ry = np.array([[c[1], 0, s[1]], [0, 1, 0], [-s[1], 0, c[1]]])
+        init[i, :3, :3] = (rz @ ry @ init[i, :3, :3]).astype(np.float32)
+    images = scene_images(ref.meshes, labels, gts, rng)
+    Ks = np.repeat(REFINE_K[None], B, 0)
+    args = (images, Ks, labels, init)
+    with_config = lambda r, **kw: dataclasses.replace(r, config=RefinerConfig(**kw))
+    out, rec = {}, {}
+    for renderer in ("host", "device"):
+        out[renderer], rec[renderer] = time_refine(with_config(ref, renderer=renderer), args,
+                                                   renderer, smi)
+    large = dataclasses.replace(ref, meshes=MeshStore(large_paths, 500), _device_pack=None)
+    for renderer in ("host", "device"):
+        _, rec[f"{renderer}_large"] = time_refine(with_config(large, renderer=renderer), args,
+                                                  f"{renderer}_large", smi)
+    large.meshes.close()
+    # the same refiner on the CPU, on the first two hypotheses
+    cpu = dataclasses.replace(ref, refiner_net=copy.deepcopy(ref.refiner_net).cpu(),
+                              scorer_net=copy.deepcopy(ref.scorer_net).cpu(),
+                              device=torch.device("cpu"), _device_pack=None)
+    t0 = time.perf_counter()
+    cpu_out = cpu.refine_batch(*(x[:2] for x in args))
+    cpu_s = time.perf_counter() - t0
+    # keep_best_init keeps the init pose wherever the random scorer ranks it
+    # higher, and a near tie may fall either way under the two renderers: so
+    # the renderers are compared without it, where every pose must also move
+    # by more than their bound, and with it each output must be the init
+    # pose (normalized) or its renderer's refined pose
+    free = {k: with_config(ref, renderer=k, keep_best_init=False).refine_batch(*args)
+            for k in ("host", "device")}
+    halves = [with_config(ref, renderer="device", keep_best_init=False).refine_batch(
+        *(x[s] for x in args)) for s in (slice(0, B // 2), slice(B // 2, B))]
+    split = tuple(np.concatenate([h[i] for h in halves]) for i in range(2))
+    gaps = dict(cpu=result_gap(tuple(x[:2] for x in out["host"]), cpu_out),
+                device=result_gap(free["device"], free["host"]),
+                split=result_gap(free["device"], split))
+    init_n = normalize_T(torch.as_tensor(init)).numpy()
+    moved = [pose_gap(free["device"][0][i:i + 1], init[i:i + 1]) for i in range(B)]
+    kept, referee = {}, 0.0
+    for k in ("host", "device"):
+        gap = lambda T, i: float(np.abs(out[k][0][i] - T[i]).max())
+        kept[k] = [gap(init_n, i) < 1e-6 for i in range(B)]
+        referee = max([referee] + [gap(init_n if keep else free[k][0], i)
+                                   for i, keep in enumerate(kept[k])])
+    rec.update(gaps=gaps, cpu_s=cpu_s, referee_gap=referee,
+               kept_init={k: int(sum(v)) for k, v in kept.items()},
+               moved_min=dict(R=min(m["R"] for m in moved), t_mm=min(m["t_mm"] for m in moved)))
+    log("refine_parity", cpu_B=2, cpu_s=f"{cpu_s:.2f}",
+        **{f"{k}_{q}": f"{v:.4g}" for k, g in gaps.items() for q, v in g.items()},
+        **{f"moved_min_{q}": f"{v:.4g}" for q, v in rec["moved_min"].items()},
+        kept_init=repr(rec["kept_init"]).replace(" ", ""), referee_gap=f"{referee:.3g}")
+    for q in ("R", "t_mm", "score"):
+        check(gaps["cpu"][q] <= CPU_BOUND[q], f"card against CPU: {gaps['cpu']} > {CPU_BOUND}")
+        check(gaps["device"][q] <= DEVICE_BOUND[q],
+              f"device renderer against host: {gaps['device']} > {DEVICE_BOUND}")
+        check(gaps["split"][q] <= CPU_BOUND[q],
+              f"a batch of 8 against two of 4: {gaps['split']} > {CPU_BOUND}")
+    for q in ("R", "t_mm"):
+        check(rec["moved_min"][q] > DEVICE_BOUND[q],
+              f"a pose moved {rec['moved_min']}, not more than {DEVICE_BOUND}")
+    check(referee <= 1e-5,
+          f"keep_best_init returned neither the init nor the refined pose: {referee}")
+    ref.meshes.close()
+    return rec
+
+
+def phase_refine_cli(root: str, init_csv: str, smi) -> dict:
+    """11.5: `python -m gigapose_tpu_torch.refine` through main() on phase
+    10's dataset and the MultiHypothesis csv of one of its runs, min_score 0,
+    REFINE_CLI_IMAGES images, with the host and the device renderer: one
+    refined row per instance, each equal to one of its instance's coarse
+    hypotheses (the CLI's untrained head is the identity), rasterizer
+    launches RENDERS_PER_BATCH per batch of at most REFINE_B hypotheses."""
+    coarse = bop_io.load_bop_csv(init_csv, extra_column="instance_id")
+    per_image = bop_io.group_by_image(coarse, image_key="im_id")
+    keys = sorted(per_image)[:REFINE_CLI_IMAGES]
+    want_rows = sum(len({int(r["instance_id"]) for r in per_image[k]}) for k in keys)
+    batches = sum(-(-len(per_image[k]) // REFINE_B) for k in keys)
+    rec = {}
+    for renderer in ("host", "device"):
+        RZ.rasterize.launches = 0
+        save_dir = osp.join(root, "results", f"refine_{renderer}")
+        paths, timing = refine_cli.main([
+            f"machine.root_dir={root}", "test_dataset_name=tudl", "model=large", "run_id=refine",
+            f"init_loc_path={init_csv}", f"save_dir={save_dir}", "min_score=0",
+            f"max_images={REFINE_CLI_IMAGES}", f"refine_renderer={renderer}"])
+        torch.cuda.synchronize()
+        launches = RZ.rasterize.launches
+        check(launches == (RENDERS_PER_BATCH * batches if renderer == "device" else 0),
+              f"refine CLI {renderer}: {launches} rasterizer launches, {batches} batches")
+        rows = bop_io.load_bop_csv(paths[0])
+        check(len(rows) == want_rows and timing["images"] == len(keys),
+              f"refine CLI {renderer}: {len(rows)} rows for {want_rows} instances")
+        worst = 0.0
+        for r in rows:
+            cands = [c for c in per_image[f"{r['scene_id']:06d}_{r['im_id']:06d}"]
+                     if c["obj_id"] == r["obj_id"]]
+            gap = min(max(float(np.abs(r["R"] - c["R"]).max()),
+                          float((np.abs(r["t"] - c["t"]) / np.maximum(np.abs(c["t"]), 10.0)).max()))
+                      for c in cands)
+            worst = max(worst, gap)
+        check(worst <= CLI_REFINE_TOL["R"], f"refine CLI {renderer}: a refined pose is "
+              f"{worst} from every coarse hypothesis of its object")
+        ms = np.asarray(timing["image_s"]) * 1e3
+        rec[renderer] = dict(images=timing["images"], hypotheses=timing["hypotheses"],
+                             rows=len(rows), image_ms_p50=float(np.percentile(ms, 50)),
+                             image_ms_p90=float(np.percentile(ms, 90)),
+                             images_per_s=timing["images"] / timing["run_s"],
+                             hypotheses_per_s=timing["hypotheses"] / timing["run_s"],
+                             run_s=timing["run_s"], batches=batches, raster_launches=launches,
+                             max_gap_to_coarse=worst)
+        log("refine_cli", renderer=renderer, **{k: (f"{v:.4g}" if isinstance(v, float) else v)
+                                                for k, v in rec[renderer].items()}, card=repr(smi))
+    return rec
+
+
+def phase_refinement(root: str, init_csv: str, dev, smi) -> dict:
+    """11. Refinement on the card, in phase 10's dataset: the meshes of its
+    two objects written to datasets/tudl/models, and two meshes at the top
+    of BOP's range beside the dataset; then 11.3-11.5."""
+    models, large_dir = osp.join(root, "datasets", "tudl", "models"), osp.join(root, "large")
+    sets = {}
+    for tag, folder, n in (("dataset", models, SPHERE_SEGMENTS),
+                           ("large", large_dir, SPHERE_SEGMENTS_LARGE)):
+        os.makedirs(folder)
+        faces = [write_sphere_ply(osp.join(folder, f"obj_{o:06d}.ply"), SEED + 20 + o, n)
+                 for o in (1, 2)]
+        sets[tag] = refine_cli.mesh_paths_of(folder)
+        log("meshes", set=tag, objects=len(sets[tag]), faces=faces,
+            vertices=[len(load_mesh(p)[0]) for p in sets[tag].values()])
+    rec = {}
+    for tag, paths in sets.items():
+        store = MeshStore(paths, 500)
+        rec[f"raster_{tag}"] = raster_case(dev, paths, store, tag)
+        store.close()
+    rec["refine"] = phase_refine(dev, sets["dataset"], sets["large"], smi)
+    rec["cli"] = phase_refine_cli(root, init_csv, smi)
+    torch.cuda.empty_cache()
+    return rec
+
+
+def raster_record(rec: dict) -> dict:
+    """The rasterizer's entry of the kernels line, at the dataset's meshes:
+    launches in phase 11.4's device runs on them (3 batches), launches_cli
+    in each refine CLI run; bound_ms from the work the function needs,
+    bound_ms_brute from the tests the kernel makes; the same at the largest
+    meshes under "large"."""
+    r, big = rec["raster_dataset"], rec["raster_large"]
+    entry = dict(name="rasterizer", route="cuda", source="gigapose_tpu_torch/csrc/rasterizer.cu",
+                 replaces="gigapose_tpu/render/jax_renderer.py:200 (XLA, no Pallas kernel)",
+                 launches=3 * rec["refine"]["device"]["launches_per_batch"], on_main_path=True,
+                 max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+                 bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
+                 bound_ms_brute=r["bound_ms_brute"], faces=r["faces"],
+                 launches_cli={f"refine_{k}": v["raster_launches"] for k, v in rec["cli"].items()},
+                 large={k: big[k] for k in ("faces", "ms", "plain_ms", "max_abs_err", "bound_ms",
+                                            "bound_by", "bound_ms_brute")})
+    entry["bound_share"] = entry["bound_ms"] / entry["ms"]
+    log("kernel", **{f: (f"{v:.4g}" if isinstance(v, float) else v) for f, v in entry.items()
+                     if f not in ("source", "route", "launches_cli", "large")},
+        launches_cli=repr(entry["launches_cli"]).replace(" ", ""),
+        large=repr({k: (round(v, 6) if isinstance(v, float) else v)
+                    for k, v in entry["large"].items()}).replace(" ", ""))
+    return entry
 
 
 def kernel_records(record, qrec, krec, main_stats, bf16_counts, int8_counts, forwards, cli_rec):
@@ -1113,16 +1628,18 @@ def main() -> int:
 
     # 1. device + build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        libs = dict(zip(KERNELS, pool.map(build, KERNELS)))
-    for name in KERNELS:
+    sources = KERNELS + HOST_SOURCES
+    with ThreadPoolExecutor(len(sources)) as pool:
+        libs = dict(zip(sources, pool.map(build, sources)))
+    for name in sources:
         load_library(name)
     build_s = time.perf_counter() - t0
     log("device", kind=repr(kind), count=torch.cuda.device_count(), nvidia_smi=repr(smi),
         torch=torch.__version__, cuda=torch.version.cuda)
     for name, path in libs.items():
         report = ptxas_report(path.with_suffix(".log").read_text())
-        log("build", source=f"{name}.cu", seconds=f"{build_s:.2f}", library=path.name,
+        log("build", source=name if name.endswith(".cpp") else f"{name}.cu",
+            seconds=f"{build_s:.2f}", library=path.name,
             registers_spill_stores_loads=repr(report).replace(" ", ""))
         spills = {k: v for k, v in report.items() if v[1] or v[2]}
         check(not spills, f"ptxas spills registers in {spills}")
@@ -1175,11 +1692,14 @@ def main() -> int:
     del est, est8, store, store8, preds, preds8
     torch.cuda.empty_cache()
 
-    # 10. the CLI on the card: a BOP dataset on disk through cli.main
-    cli_rec = phase_cli(templates, dev, smi)
+    # 10. the CLI on the card: a BOP dataset on disk through cli.main; 11.
+    # refinement on the card, in that dataset
+    cli_rec = phase_cli(templates, dev, smi,
+                        then=lambda root, csv: phase_refinement(root, csv, dev, smi))
 
     kernels = kernel_records(record, qrec, krec, stats, bf16_counts, int8_counts, forwards,
                              cli_rec)
+    kernels.append(raster_record(cli_rec["then"]))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,4 +1,5 @@
-"""gigapose_tpu_torch — PyTorch / CUDA port of gigapose_tpu's coarse pose path.
+"""gigapose_tpu_torch — PyTorch / CUDA port of gigapose_tpu's coarse pose path
+and its render-and-compare refinement.
 
 The JAX package ``gigapose_tpu`` is the reference; this package mirrors its
 sub-packages and module names so each counterpart sits at the same relative
@@ -12,5 +13,9 @@ PyTorch and the CUDA toolkit.
 - ``models``   : DINOv2 ViT, AE net, IST net as ``nn.Module``s, and the
                  flax -> torch weight bridge.
 - ``pipeline`` : template onboarding, the coarse estimator, request prep.
-- ``kernels``  : nvcc build + ctypes loading of the CUDA sources in ``csrc/``.
+- ``render``   : mesh readers, the host C++ rasterizer, the batched device
+                 rasterizer (a CUDA kernel on the card).
+- ``refiner``  : render-and-compare geometry, the refiner and scorer nets,
+                 the refine loop and its runner (``refine.py`` is its CLI).
+- ``kernels``  : nvcc / host-compiler build + ctypes loading of ``csrc/``.
 """

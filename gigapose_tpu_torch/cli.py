@@ -56,7 +56,7 @@ OPTIONAL_KEYS = ("device", "onboarding_cache", "max_images", "vis_every",
                  "model.serving_quant_ist")
 
 
-def _device(cfg: Config) -> torch.device:
+def device_of(cfg: Config) -> torch.device:
     """cfg.device if given, else cuda:0; no card and no device raises."""
     if cfg.get("device"):
         return torch.device(str(cfg.device))
@@ -67,7 +67,7 @@ def _device(cfg: Config) -> torch.device:
 
 
 def build_estimator(cfg: Config, tiny: bool = False) -> GigaPoseEstimator:
-    device = _device(cfg)
+    device = device_of(cfg)
     pallas = cfg.model.get("use_pallas_matching", "auto")
     if str(pallas) == "auto":
         pallas = device.type == "cuda"
@@ -146,9 +146,11 @@ def _has_key(cfg: dict, dotted: str) -> bool:
     return True
 
 
-def main(argv=None) -> CoarseRunner:
-    """Run the CLI on `argv` (default sys.argv[1:]); returns the runner,
-    whose `timing` holds onboarding and run times."""
+def load_cli_config(argv, optional_keys) -> Config:
+    """The `test` config with `argv`'s overrides (default sys.argv[1:]);
+    `model=<name>` picks the model group file. An override of a key that is
+    neither in the config files nor in `optional_keys` raises ValueError: it
+    would change nothing. Multi-process runs raise NotImplementedError."""
     if os.environ.get("GIGAPOSE_COORDINATOR") or os.environ.get("GIGAPOSE_DISTRIBUTED") == "1":
         raise NotImplementedError("multi-process inference is ROADMAP A14")
     overrides = list(argv if argv is not None else sys.argv[1:])
@@ -158,10 +160,16 @@ def main(argv=None) -> CoarseRunner:
     rest = [o for o in overrides if not o.startswith("model=")]
     files = load_config("test", groups=groups)
     unread = [k for k in (o.split("=", 1)[0] for o in rest if "=" in o)
-              if not (_has_key(files, k) or k in OPTIONAL_KEYS)]
+              if not (_has_key(files, k) or k in optional_keys)]
     if unread:
         raise ValueError(f"the CLI reads no option {', '.join(unread)}")
-    cfg = load_config("test", rest, groups=groups)
+    return load_config("test", rest, groups=groups)
+
+
+def main(argv=None) -> CoarseRunner:
+    """Run the CLI on `argv` (default sys.argv[1:]); returns the runner,
+    whose `timing` holds onboarding and run times."""
+    cfg = load_cli_config(argv, OPTIONAL_KEYS)
     if cfg.get("vis_every"):
         raise NotImplementedError(
             "vis_every: the retrieval plots draw with PIL, which the port does not use "

@@ -167,3 +167,25 @@ def gigapose_ckpt_to_torch(path: str):
     if unknown:
         raise ValueError(f"checkpoint keys outside the coarse nets: {unknown}")
     return out["ae"], out["ist"]
+
+
+def refiner_flax_to_torch(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """RefinerNet or CoarseScorerNet variables {"params", "batch_stats"}
+    (gigapose_tpu/refiner/network.py) -> the port's state dict
+    (refiner/network.py, whose module names are the flax ones): conv kernels
+    HWIO -> OIHW, dense kernels (in, out) -> (out, in), BatchNorm scale /
+    bias / mean / var. Load it with load_state_dict(strict=True)."""
+    out: Dict[str, torch.Tensor] = {}
+    stats = variables.get("batch_stats", {})
+
+    def walk(p: Mapping, s: Mapping, prefix: str) -> None:
+        if "kernel" in p:
+            (_conv if np.ndim(p["kernel"]) == 4 else _linear)(p, prefix, out)
+        elif "scale" in p:
+            _bn(p, s, prefix, out)
+        else:
+            for name, sub in p.items():
+                walk(sub, s.get(name, {}), f"{prefix}{name}.")
+
+    walk(variables["params"], stats, "")
+    return out

@@ -120,6 +120,8 @@ class CoarseRunner:
     max_dets_per_forward: Optional[int] = None
     # host-clock seconds and counts of onboarding and of the last run()
     timing: Dict[str, float] = dataclasses.field(default_factory=dict)
+    # where the store's objects came from (named when a label is not among them)
+    template_dir: Optional[str] = None
 
     @classmethod
     def onboard(
@@ -145,6 +147,7 @@ class CoarseRunner:
         cache_path = osp.join(template_dir, f"onboarded_{cache_tag}.npz") if cache_tag else None
         make = lambda store, cached: cls(
             estimator=estimator, store=store, save_dir=save_dir, dataset_name=dataset_name,
+            template_dir=template_dir,
             timing=dict(onboard_s=timer.toc(block_on=store.ae_features),
                         onboard_cached=cached, objects=int(store.K.shape[0])),
             **kwargs,
@@ -182,8 +185,19 @@ class CoarseRunner:
 
     def prepare_batch(self, image: ImageDetections, sel=None) -> DetectionBatch:
         """Host arrays -> device crops, padded to a shape bucket. `sel`
-        restricts to a subset of the image's detections (chunking)."""
+        restricts to a subset of the image's detections (chunking). A label
+        outside the store's 1..O raises ValueError before anything reaches
+        the device: the estimator indexes the store with it, which on CUDA
+        is a device-side assert (JAX's gather clamps it instead and serves
+        the last object's templates)."""
         sel = slice(None) if sel is None else sel
+        num_objects = int(self.store.K.shape[0])
+        bad = (image.labels[sel] < 1) | (image.labels[sel] > num_objects)
+        if bad.any():
+            obj_id = int(image.obj_ids[sel][bad][0])
+            raise ValueError(
+                f"image {image.key}: obj_id {obj_id} has no onboarded templates "
+                f"({num_objects} objects from template_dir {self.template_dir})")
         return prepare_batch(image.rgb, image.masks[sel], image.boxes_xyxy[sel],
                              image.labels[sel], image.K, self.estimator.device,
                              self.target_size, self.num_patches)

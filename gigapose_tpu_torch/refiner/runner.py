@@ -1,0 +1,151 @@
+"""Refinement runner: coarse csv -> refined BOP csv (port of
+gigapose_tpu/refiner/runner.py:28-174, one process).
+
+Per image: the coarse hypotheses (top-1 csv or the top-k MultiHypothesis
+csv), refined in chunks of `chunk_size` through RenderCompareRefiner, the
+best hypothesis kept per instance with score = (coarse score + pose score)
+/ 2 (the reference's refiner.py:124-131), one npz per image, merged into the
+refined csv.
+"""
+
+from __future__ import annotations
+
+import os
+import os.path as osp
+from typing import Dict, List, Optional
+
+import numpy as np
+
+from gigapose_tpu_torch.dataloader import bop_io
+from gigapose_tpu_torch.refiner.refiner import RenderCompareRefiner
+from gigapose_tpu_torch.utils.logging import get_logger
+from gigapose_tpu_torch.utils.timer import Timer
+
+logger = get_logger(__name__)
+
+
+def find_init_pose_path(pred_dir: str, dataset_name: str, model_name: str, run_id,
+                        use_multiple: bool = True) -> str:
+    """The coarse csv of a run (ref: refiner_utils.find_init_pose_path)."""
+    name = f"{model_name}-pbrreal-rgb-mmodel_{dataset_name}-test_{run_id}"
+    path = osp.join(pred_dir, f"{name}{'MultiHypothesis.csv' if use_multiple else '.csv'}")
+    if not osp.exists(path):
+        raise FileNotFoundError(path)
+    return path
+
+
+def load_hypotheses(init_loc_path: str, min_score: float) -> Dict[str, List[Dict]]:
+    """The coarse csv's rows per image key; `instance_id` from its extra
+    column, else the row index. Instances whose best hypothesis scores below
+    min_score are dropped whole."""
+    try:
+        locs = bop_io.load_bop_csv(init_loc_path, extra_column="instance_id")
+    except ValueError:  # a top-1 csv: 7 columns
+        locs = bop_io.load_bop_csv(init_loc_path)
+        for i, r in enumerate(locs):
+            r["instance_id"] = i
+    per_image = bop_io.group_by_image(locs, image_key="im_id")
+    for key, rows in per_image.items():
+        best: Dict[int, float] = {}
+        for r in rows:
+            iid = int(r["instance_id"])
+            best[iid] = max(best.get(iid, -1e9), r["score"])
+        per_image[key] = [r for r in rows if best[int(r["instance_id"])] >= min_score]
+    return per_image
+
+
+def run_refinement(refiner: RenderCompareRefiner, scene_source, init_loc_path: str,
+                   save_dir: str, dataset_name: str, model_name: str = "large", run_id="0",
+                   chunk_size: int = 8, max_images: Optional[int] = None,
+                   min_score: float = 0.25, timing: Optional[Dict] = None) -> List[str]:
+    """Refine every image's hypotheses and merge the refined csv; returns
+    its paths. A hypothesis whose obj_id has no mesh raises ValueError
+    before any image is refined. `timing`, when given, receives the images,
+    the hypotheses, the per-image seconds and the run's seconds."""
+    locs_per_image = load_hypotheses(init_loc_path, min_score)
+    meshes = refiner.meshes.rasterizers
+    missing = sorted({int(r["obj_id"]) for rows in locs_per_image.values() for r in rows}
+                     - set(meshes))
+    if missing:
+        dirs = sorted({osp.dirname(r.mesh_path) for r in meshes.values()})
+        raise ValueError(f"obj_id {missing[0]} of {init_loc_path} has no mesh in {dirs} "
+                         f"(meshes of objects {sorted(meshes)})")
+
+    pred_dir = osp.join(save_dir, "predictions_refined")
+    os.makedirs(pred_dir, exist_ok=True)
+    for f in os.listdir(pred_dir):  # stale batches of earlier runs: the merge globs *.npz
+        if f.endswith(".npz"):
+            os.remove(osp.join(pred_dir, f))
+
+    def observations():
+        """Random access by key where the source has an index holding every
+        key (only images with hypotheses are decoded), else in order."""
+        keys = sorted(locs_per_image)
+        index = getattr(scene_source, "key_index", None)
+        if hasattr(scene_source, "lookup") and index and all(k in index for k in keys):
+            logger.info(f"Random-access refinement over {len(keys)} keys")
+            for k in keys:
+                obs = scene_source.lookup(k)
+                if obs is not None:
+                    yield obs
+            return
+        yield from scene_source
+
+    stats = dict(images=0, hypotheses=0, image_s=[])
+    timer, run_timer = Timer(), Timer().tic()
+    for batch_id, obs in enumerate(observations()):
+        rows = locs_per_image.get(obs.key, [])
+        if not rows:
+            continue
+        if max_images is not None and stats["images"] >= max_images:
+            break
+        timer.tic()
+        img = obs.rgb.astype(np.float32).transpose(2, 0, 1)[None] / 255.0
+        B = len(rows)
+        images = np.repeat(img, B, axis=0)
+        K = np.tile(obs.K[None], (B, 1, 1)).astype(np.float32)
+        labels = np.array([r["obj_id"] for r in rows], np.int32)
+        TCO = np.tile(np.eye(4, dtype=np.float32), (B, 1, 1))
+        for i, r in enumerate(rows):
+            TCO[i, :3, :3] = r["R"]
+            TCO[i, :3, 3] = np.asarray(r["t"]).reshape(3) / 1000.0  # mm -> m
+        refined = np.zeros_like(TCO)
+        pose_scores = np.zeros(B, np.float32)
+        for s in range(0, B, chunk_size):
+            e = min(s + chunk_size, B)
+            refined[s:e], pose_scores[s:e] = refiner.refine_batch(
+                images[s:e], K[s:e], labels[s:e], TCO[s:e])
+        elapsed = timer.toc()  # refine_batch returns host arrays: the work is done
+        stats["images"] += 1
+        stats["hypotheses"] += B
+        stats["image_s"].append(elapsed)
+
+        # the best hypothesis per instance; score = mean of the coarse
+        # matching score and the pose score (refiner.py:124-131)
+        by_instance: Dict[int, List[int]] = {}
+        for i, r in enumerate(rows):
+            by_instance.setdefault(int(r["instance_id"]), []).append(i)
+        sel, scores = [], []
+        for idxs in by_instance.values():
+            best = max(idxs, key=lambda i: float(pose_scores[i]))
+            sel.append(best)
+            scores.append((rows[best]["score"] + float(pose_scores[best])) / 2)
+        sel = np.asarray(sel)
+        poses_mm = refined[sel].copy()
+        poses_mm[:, :3, 3] *= 1000.0  # m -> mm for the BOP csv
+        np.savez(
+            osp.join(pred_dir, f"{batch_id:06d}.npz"),
+            scene_id=np.full(len(sel), obs.scene_id, np.int32),
+            im_id=np.full(len(sel), obs.im_id, np.int32),
+            object_id=labels[sel],
+            poses=poses_mm,
+            scores=np.asarray(scores),
+            time=np.array([rows[i]["time"] for i in sel]),
+            refinement_time=np.full(len(sel), elapsed),
+        )
+    stats["run_s"] = run_timer.toc()
+    if timing is not None:
+        timing.update(stats)
+    logger.info(f"Refined {stats['images']} images")
+    return bop_io.merge_batched_predictions(pred_dir, dataset_name, model_name, run_id,
+                                            is_refined=True)

@@ -178,7 +178,7 @@ def test_cli_refuses_what_it_does_not_serve(tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError, match="vis_every"):
         cli.main(base + ["device=cpu", "vis_every=5"])
     for unread in ("model.ist_net.num_attn_heads=4", "model.optim.ae_lr=1.0e-4",
-                   "machine.batch_size=8", "use_multiple=false", "data.template.level=2"):
+                   "machine.batch_size=8", "machine.num_workers=2", "data.template.level=2"):
         with pytest.raises(ValueError, match=unread.split("=")[0]):
             cli.main(base + ["device=cpu", unread])
     monkeypatch.setenv("GIGAPOSE_TINY", "1")

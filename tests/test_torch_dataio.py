@@ -391,8 +391,9 @@ def test_config_copies_match_the_jax_files(name):
     assert got == _restricted(want, got)
     with open(osp.join(config.CONFIG_DIR, name)) as f:
         assert yaml.safe_load(f) == got
-    read = {"test.yaml": ["test_dataset_name", "test_setting", "run_id", "store_shards",
-                          "max_num_dets_per_forward", "disable_output", "save_dir"],
+    read = {"test.yaml": ["test_dataset_name", "test_setting", "run_id", "use_multiple",
+                          "store_shards", "max_num_dets_per_forward", "disable_output",
+                          "save_dir"],
             "data/bop.yaml": ["depth_scale", "template.dir", "template.num_templates",
                               "template.scale_factor"],
             "machine/local.yaml": ["root_dir"]}.get(name, [

@@ -45,7 +45,12 @@ def test_port_imports_no_jax_pil_yaml_or_jax_package():
                      "gigapose_tpu_torch.dataloader.scene", "gigapose_tpu_torch.dataloader.test_set",
                      "gigapose_tpu_torch.dataloader.templates_disk",
                      "gigapose_tpu_torch.utils.config", "gigapose_tpu_torch.utils.logging",
-                     "gigapose_tpu_torch.utils.timer"):
+                     "gigapose_tpu_torch.utils.timer", "gigapose_tpu_torch.render.mesh_io",
+                     "gigapose_tpu_torch.render.rasterizer", "gigapose_tpu_torch.render.rasterize",
+                     "gigapose_tpu_torch.refiner.ops", "gigapose_tpu_torch.refiner.network",
+                     "gigapose_tpu_torch.refiner.device_render",
+                     "gigapose_tpu_torch.refiner.refiner", "gigapose_tpu_torch.refiner.runner",
+                     "gigapose_tpu_torch.refine"):
         assert expected in result["modules"]
 
 

@@ -239,3 +239,32 @@ def test_estimator_create_defaults_to_the_card():
     cuda0 = torch.device("cuda", 0)
     for net in (est.ae_net, est.ist_net):
         assert {p.device for p in net.parameters()} == {cuda0}
+
+
+def test_runner_refuses_labels_beyond_the_store():
+    """CoarseRunner.prepare_batch checks 1 <= label <= O on the host before
+    anything reaches the device: a detection of an object with no onboarded
+    templates raises ValueError naming its obj_id and the template_dir (the
+    estimator would index the store with it, a device-side assert on CUDA;
+    JAX's gather clamps it and serves the last object's templates)."""
+    import types
+
+    from gigapose_tpu_torch.dataloader.test_set import ImageDetections as TImageDetections
+    from gigapose_tpu_torch.pipeline.runner import CoarseRunner as TCoarseRunner
+
+    H, W = 32, 48
+    image = TImageDetections(
+        scene_id=1, im_id=7, rgb=np.zeros((H, W, 3), np.uint8), K=np.eye(3),
+        labels=np.array([1, 3], np.int32), obj_ids=np.array([1, 5], np.int32),
+        boxes_xyxy=np.array([[0, 0, 8, 8], [4, 4, 20, 20]], np.int32),
+        masks=np.ones((2, H, W), np.uint8), scores=np.ones(2, np.float32),
+        detection_time=0.0, test_list=[])
+    runner = TCoarseRunner(estimator=None, store=types.SimpleNamespace(K=torch.zeros(2, 3, 3)),
+                           save_dir="unused", dataset_name="tudl", template_dir="/data/templates")
+    with pytest.raises(ValueError, match="obj_id 5 .*template_dir /data/templates"):
+        runner.prepare_batch(image)
+    with pytest.raises(ValueError, match="obj_id 5"):
+        runner.prepare_batch(image, np.array([1]))
+    image.labels[1] = 0
+    with pytest.raises(ValueError, match="obj_id 5"):
+        runner.prepare_batch(image)
