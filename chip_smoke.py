@@ -101,6 +101,30 @@ inputs, twice: with the bf16 AE (`serving_quant=off`) and with the int8 AE
    untrained head is the identity), rasterizer launches per batch, and a
    [refine_cli] line per run (per-image p50 / p90, images/s,
    hypotheses/s).
+12. templates from CAD models and BOP scoring, beside phase 10's dataset:
+   12.1 the 162 views of level 1 at 640 x 480 (the object at 0.4 m) of
+   phase 11's two dataset meshes and of one 99,904-face mesh, through the
+   device renderer (render/templates.py:render_template_views_device: one
+   rasterizer launch per object at 19,800 faces, two at 99,904, counted)
+   and the host renderer (render/rasterizer.py:render_template_views),
+   each timed as render and PNG encode; every written PNG decoded back to
+   the rendered arrays exactly; four views per mesh (those beside the cut
+   between launches first) bit-equal to the plain version; the pixels where
+   the device and host renders differ; each launch's device time (CUDA
+   events), the bound of the function's work over the stack (raster_work)
+   and the plain version's time for one view; one view's PNG bytes and
+   decode time with filter-0 and with adaptive rows ([templates] per mesh).
+   12.2 a second BOP dataset under root/e2e: the two meshes in models/ and
+   no template set, E2E_IMAGES test images of both objects at known poses
+   (host renders composed by depth: RGB, depth, scene_gt, scene_gt_info,
+   camera, targets, CNOS detections from the render masks), then
+   `gigapose_tpu_torch.scripts.eval_bop.main` with the int8 AE, templates
+   and refinement on the device renderer, refine=true, min_score 0, with
+   every kernel count set to 0 just before it and read just after (each
+   kernel of the path launched; the rasterizer 2 + 8 per refine batch):
+   the rendered template set, the csvs, AR from the port's scorer; a csv
+   of the ground truth scored on the card (AR 1.0 on VSD, MSSD and MSPD)
+   and the pipeline's csv scored again, timed per image ([eval_bop]).
 
 Every kernel count is set to 0 just before a path is driven and read just
 after; launches made to compare a kernel with its plain version are not
@@ -110,8 +134,9 @@ Any failed check raises, so the script exits non-zero. It needs CUDA and
 never falls back to the CPU. The last lines are the kernels' JSON record
 (one entry per hand-written kernel and per chain that ports a TPU kernel:
 launches in the main path's runs, error, ms, plain_ms, bound_ms, bound_by,
-and library_ms or partial_library_ms), the card's name and power limit from
-nvidia-smi, and the result JSON.
+and library_ms or partial_library_ms; the rasterizer's also
+launches_templates and its template-shape times), the card's name and
+power limit from nvidia-smi, and the result JSON.
 """
 
 from __future__ import annotations
@@ -139,6 +164,9 @@ from gigapose_tpu_torch import refine as refine_cli
 from gigapose_tpu_torch.dataloader import bop_io
 from gigapose_tpu_torch.dataloader.png import decode_png, encode_png
 from gigapose_tpu_torch.dataloader.test_set import InferenceDataset
+from gigapose_tpu_torch.eval import errors as EV
+from gigapose_tpu_torch.eval import scorer as SC
+from gigapose_tpu_torch.eval import score_bop
 from gigapose_tpu_torch.kernels.build import build, load_library
 from gigapose_tpu_torch.lib3d.icosphere import template_object_poses
 from gigapose_tpu_torch.models import vit_int8 as v8
@@ -157,7 +185,13 @@ from gigapose_tpu_torch.refiner.refiner import (
     crop_prep,
 )
 from gigapose_tpu_torch.render import rasterize as RZ
+from gigapose_tpu_torch.render import rasterizer as TR
+from gigapose_tpu_torch.render import templates as TP
+from gigapose_tpu_torch.render.mesh_io import diameter as mesh_diameter
 from gigapose_tpu_torch.render.mesh_io import load_mesh
+from gigapose_tpu_torch.render.rasterizer import Rasterizer
+from gigapose_tpu_torch.scripts import eval_bop
+from gigapose_tpu_torch.scripts import render_templates as RT
 
 SEED = 0
 MODEL = "dinov2_vitl14"
@@ -1638,6 +1672,368 @@ def phase_refinement(root: str, init_csv: str, dev, smi) -> dict:
     return rec
 
 
+# 12. templates from CAD models and BOP scoring. 12.1 renders every view of
+# level 1 (162 at 640 x 480, TEMPLATE_K, the object at 0.4 m) of phase 11's
+# two dataset meshes and of one 99,904-face mesh, with the device and the
+# host renderer; 12.2 runs the port's eval_bop from CAD models to AR.
+TEMPLATE_LEVEL = 1
+TEMPLATE_CHECK_VIEWS = 4  # views per mesh held bit-equal to the plain version
+E2E_IMAGES = 20
+E2E_RUN = "e2e"
+
+
+def png_sizes(rgba: np.ndarray, depth_mm: np.ndarray) -> dict:
+    """Bytes and host decode ms (median of 5) of one view's RGBA and depth
+    PNGs, with filter-0 rows (what render/templates.py writes) and with
+    adaptive ones."""
+    out = {}
+    for name, img in (("rgba", rgba), ("depth", depth_mm)):
+        for filt in (TP.PNG_FILTER, "adaptive"):
+            data = encode_png(img, filt)
+            times = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                got = decode_png(data)
+                times.append((time.perf_counter() - t0) * 1e3)
+            check(np.array_equal(got, img), f"template PNG {name} {filt} round trip")
+            tag = "filter0" if filt == TP.PNG_FILTER else "adaptive"
+            out[f"{name}_{tag}_bytes"] = len(data)
+            out[f"{name}_{tag}_decode_ms"] = float(np.median(times))
+    return out
+
+
+def template_case(dev, mesh: str, out_root: str, tag: str, smi) -> dict:
+    """12.1 on one mesh: render_template_views_device (its rasterizer
+    launches counted) and the host render_template_views, each timed as
+    render and PNG encode; the written PNGs decoded back to the rendered
+    arrays exactly; TEMPLATE_CHECK_VIEWS views (those beside each cut
+    between launches first) bit-equal to the plain version; the pixels where
+    the device and host renders differ; each launch's device time and the
+    bound of the function's work (raster_work) over the stack, the mesh
+    counted once a launch (the launch takes it expanded, not copied)."""
+    verts, faces, colors = load_mesh(mesh)
+    colors = (np.full((len(verts), 3), TP.DEFAULT_COLOR, np.uint8) if colors is None
+              else colors).astype(np.float32)
+    unit = TP.mm_per_unit(mesh_diameter(verts))
+    poses = TP.template_poses(TEMPLATE_LEVEL).astype(np.float32)
+    poses[:, :3, 3] /= unit
+    N, (V, F) = len(poses), (len(verts), len(faces))
+    per_launch = RZ.views_per_launch(F, H, W, V)
+    n_launches = -(-N // per_launch)
+    rec = dict(faces=F, vertices=V, views=N, views_per_launch=per_launch)
+    for renderer in ("device", "native"):
+        out_dir = osp.join(out_root, f"{tag}_{renderer}")
+        timing = {}
+        RZ.rasterize.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if renderer == "device":
+            n = TP.render_template_views_device(mesh, out_dir, level=TEMPLATE_LEVEL, device=dev,
+                                                timing=timing)
+        else:
+            n = TR.render_template_views(mesh, out_dir, level=TEMPLATE_LEVEL, timing=timing)
+        total = time.perf_counter() - t0
+        launches = RZ.rasterize.launches
+        want = n_launches if renderer == "device" else 0
+        check(n == N and launches == want and timing.get("launches", 0) == want,
+              f"templates {tag} {renderer}: {n} views, {launches} launches, {want} expected")
+        rec[renderer] = dict(s=total, render_s=timing["render_s"], encode_s=timing["encode_s"],
+                             launches=launches, dir_bytes=sum(
+                                 osp.getsize(osp.join(out_dir, f)) for f in os.listdir(out_dir)))
+    # the device stack again (the kernel is deterministic), its files decoded back
+    rgba, depth = TP.render_view_stack(verts, faces, colors, TP.TEMPLATE_K, poses, H, W, dev)
+    read = lambda d, name: decode_png(open(osp.join(out_root, d, name), "rb").read())
+    native_rgba, native_depth = [], []
+    for v in range(N):
+        check(np.array_equal(read(f"{tag}_device", f"{v:06d}.png"), rgba[v]) and
+              np.array_equal(read(f"{tag}_device", f"{v:06d}_depth.png"),
+                             TP.depth_mm_u16(depth[v], unit)),
+              f"templates {tag}: view {v}'s PNGs do not decode to the rendered arrays")
+        native_rgba.append(read(f"{tag}_native", f"{v:06d}.png"))
+        native_depth.append(read(f"{tag}_native", f"{v:06d}_depth.png"))
+    native_rgba, native_depth = np.stack(native_rgba), np.stack(native_depth)
+    # bit-equal to the plain version at the views beside each cut, then spread out
+    cuts = [v for c in range(per_launch, N, per_launch) for v in (c - 1, c)]
+    sel = sorted(set(cuts[:TEMPLATE_CHECK_VIEWS]) | set(
+        np.linspace(0, N - 1, TEMPLATE_CHECK_VIEWS).astype(int).tolist()))[:TEMPLATE_CHECK_VIEWS]
+    # one mesh expanded over the views, as render_view_stack gives it; K copied
+    mesh = lambda a, b: torch.as_tensor(a, device=dev)[None].expand(b, *a.shape)
+    put = lambda a, b: mesh(a, b).contiguous()
+    args = (mesh(verts, len(sel)), mesh(faces, len(sel)), mesh(colors, len(sel)),
+            put(TP.TEMPLATE_K, len(sel)), torch.as_tensor(poses[sel], device=dev), H, W)
+    got, want = RZ.rasterize(*args), RZ.rasterize_plain(*args)
+    torch.cuda.synchronize()
+    exact = raster_exact(got, want, f"templates {tag}")
+    check(np.array_equal(rgba[sel], want["rgba"].cpu().numpy()) and np.array_equal(
+        depth[sel].view(np.int32), want["depth"].cpu().numpy().view(np.int32)),
+          f"templates {tag}: the stack's views {sel} differ from the plain version")
+    # the device renders against the host renders, as 11.3 counts them
+    steps = np.abs(rgba[..., :3].astype(np.int32) - native_rgba[..., :3]).max(-1)
+    mask_d, mask_h = rgba[..., 3] > 0, native_rgba[..., 3] > 0
+    depth_d = TP.depth_mm_u16(depth, unit).astype(np.int32)
+    both = mask_d & mask_h
+    rec.update(checked_views=sel, **exact, hit_pixels=int(mask_d.sum()),
+               host_diff_pixels=int(((steps > 0) | (mask_d != mask_h)).sum()),
+               host_mask_diff_pixels=int((mask_d != mask_h).sum()),
+               host_max_steps=int(steps[both].max(initial=0)),
+               host_depth_diff_pixels=int((depth_d != native_depth)[both].sum()),
+               host_depth_max_mm=int(np.abs(depth_d - native_depth)[both].max(initial=0)))
+    # device time per launch shape, and the bound of the function's work
+    launch_ms, bound_ms, tests = [], [], 0.0
+    for s in range(0, N, per_launch):
+        b = min(per_launch, N - s)
+        args = (mesh(verts, b), mesh(faces, b), mesh(colors, b), put(TP.TEMPLATE_K, b),
+                torch.as_tensor(poses[s:s + b], device=dev), H, W)
+        launch_ms.append(cuda_ms(lambda: RZ.rasterize(*args), warmup=1, iters=3))
+        work = raster_work(*args[:2], args[3], args[4], H, W)
+        hits = float(mask_d[s:s + b].sum())
+        # the one mesh read once, each view's K and T, each view's outputs
+        nbytes = V * 3 * 4 * 2 + F * 3 * 4 + b * (9 + 16) * 4 + b * H * W * (4 + 4 + 12 + 4)
+        fixed = RASTER_OPS["vertex"] * b * V + RASTER_OPS["face"] * b * F \
+            + RASTER_OPS["shade"] * hits
+        bound_ms.append(bound(RASTER_OPS["test"] * work["tests"] + fixed, "f32", nbytes))
+        tests += work["tests"]
+        del args
+    rec.update(launch_ms=launch_ms, ms=float(sum(launch_ms)),
+               bound_ms=float(sum(b["bound_ms"] for b in bound_ms)),
+               bound_by=bound_ms[0]["bound_by"], tests=tests,
+               plain_ms_per_view=cuda_ms(lambda: RZ.rasterize_plain(
+                   put(verts, 1), put(faces, 1), put(colors, 1), put(TP.TEMPLATE_K, 1),
+                   torch.as_tensor(poses[:1], device=dev), H, W), warmup=0, iters=1),
+               png=png_sizes(rgba[0], TP.depth_mm_u16(depth[0], unit)))
+    rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+    log("templates", mesh=tag, **{k: (f"{v:.4g}" if isinstance(v, float) else
+                                      repr(v).replace(" ", "") if isinstance(v, (dict, list))
+                                      else v) for k, v in rec.items()}, card=repr(smi))
+    torch.cuda.empty_cache()
+    return rec
+
+
+def write_e2e_dataset(root: str, mesh_paths: dict, rng) -> dict:
+    """12.2's BOP dataset tudl under root/datasets: the meshes in models/
+    and no template set; E2E_IMAGES 480x640 test images, each with both
+    objects at seeded poses (random rotations, 0.48-0.6 m away, one on each
+    side of the optical axis), rendered by the host rasterizer and composed
+    by depth on a noise background: RGB (adaptive PNG), depth (uint16 mm),
+    scene_gt, scene_gt_info, camera; CNOS detections from the render masks,
+    the localization targets. -> {(im_id, obj_id): (R, t mm)}."""
+    ds = osp.join(root, "datasets", "tudl")
+    models, sdir = osp.join(ds, "models"), osp.join(ds, "test", "000001")
+    for sub in ("rgb", "depth"):
+        os.makedirs(osp.join(sdir, sub))
+    os.makedirs(models)
+    rasters = {}
+    for obj, path in sorted(mesh_paths.items()):
+        shutil.copy(path, osp.join(models, f"obj_{obj:06d}.ply"))
+        rasters[obj] = Rasterizer(path)
+    K = TP.TEMPLATE_K
+    cams, gts, infos, dets, targets, poses = {}, {}, {}, [], [], {}
+    for im in range(E2E_IMAGES):
+        T = random_poses(rng, len(rasters))
+        rgb = rng.integers(0, 60, (H, W, 3), dtype=np.uint8)
+        zbuf = np.zeros((H, W), np.float32)
+        owner = np.zeros((H, W), np.int32)
+        renders = {}
+        for k, obj in enumerate(sorted(rasters)):
+            T[k, :3, 3] *= 1000.0  # mm, the meshes' unit
+            T[k, 0, 3] = (-1) ** k * rng.uniform(90, 110)
+            poses[(im, obj)] = (T[k, :3, :3].astype(np.float64), T[k, :3, 3].astype(np.float64))
+            rgba, depth = rasters[obj].render(K, T[k], W, H)
+            renders[obj] = depth > 0
+            win = (depth > 0) & ((zbuf == 0) | (depth < zbuf))
+            zbuf[win], owner[win], rgb[win] = depth[win], obj, rgba[win][:, :3]
+        cams[str(im)] = {"cam_K": K.reshape(-1).tolist(), "depth_scale": 1.0}
+        gts[str(im)], infos[str(im)] = [], []
+        for obj in sorted(rasters):
+            mask = owner == obj
+            ys, xs = np.nonzero(mask)
+            box = [int(xs.min()), int(ys.min()), int(xs.max() - xs.min() + 1),
+                   int(ys.max() - ys.min() + 1)]
+            R, t = poses[(im, obj)]
+            gts[str(im)].append({"obj_id": obj, "cam_R_m2c": R.reshape(-1).tolist(),
+                                 "cam_t_m2c": t.tolist()})
+            infos[str(im)].append({"bbox_visib": box,
+                                   "visib_fract": float(mask.sum() / renders[obj].sum())})
+            dets.append({"scene_id": 1, "image_id": im, "category_id": obj, "score": 0.9,
+                         "bbox": box, "segmentation": bop_io.rle_encode(mask.astype(np.uint8)),
+                         "time": 0.1})
+            targets.append({"scene_id": 1, "im_id": im, "obj_id": obj, "inst_count": 1})
+        with open(osp.join(sdir, "rgb", f"{im:06d}.png"), "wb") as f:
+            f.write(encode_png(rgb, "adaptive"))
+        with open(osp.join(sdir, "depth", f"{im:06d}.png"), "wb") as f:
+            f.write(encode_png(np.clip(zbuf, 0, 65535).astype(np.uint16), "adaptive"))
+    for name, data in (("scene_camera", cams), ("scene_gt", gts), ("scene_gt_info", infos)):
+        bop_io.save_json(osp.join(sdir, f"{name}.json"), data)
+    det_dir = osp.join(root, "datasets", "default_detections", "core19_model_based_unseen",
+                       "cnos-fastsam")
+    os.makedirs(det_dir)
+    bop_io.save_json(osp.join(det_dir, "cnos-fastsam_tudl-test_chip_smoke.json"), dets)
+    bop_io.save_json(osp.join(ds, "test_targets_bop19.json"), targets)
+    return poses
+
+
+def score_card_and_host(dev, root: str, gt: dict) -> dict:
+    """The ground truth perturbed by seeded rotations of 2-20 degrees and
+    offsets of 2-30 mm, scored on the card and on the host: AR strictly
+    between 0 and 1 on MSSD and MSPD, the ARs equal within 1e-9, and each
+    pair's MSSD and MSPD, on the scorer's own points and symmetries, equal
+    within rtol 1e-5."""
+    rng = np.random.default_rng(SEED + 31)
+    rows = []
+    for (im, obj), (R, t) in sorted(gt.items()):
+        axis, dt = rng.normal(size=3), rng.normal(size=3)
+        dR = SC._axis_angle(axis / np.linalg.norm(axis), np.deg2rad(rng.uniform(2, 20)))
+        rows.append(dict(scene_id=1, im_id=im, obj_id=obj, score=1.0, R=dR @ R,
+                         t=t + dt / np.linalg.norm(dt) * rng.uniform(2, 30), time=-1))
+    csv = osp.join(root, "perturbed.csv")
+    bop_io.save_bop_csv(csv, rows)
+    timing = {}
+    card = score_bop(csv, root, "tudl", device=dev, timing=timing)
+    host = score_bop(csv, root, "tudl", device="cpu")
+    keys = [f"bop19_average_recall{e}" for e in ("", "_vsd", "_mssd", "_mspd")]
+    check(all(abs(card[k] - host[k]) <= 1e-9 for k in keys) and
+          all(0 < card[f"bop19_average_recall_{e}"] < 1 for e in ("mssd", "mspd")),
+          f"the perturbed csv scores {card} on the card, {host} on the host")
+    models = osp.join(root, "datasets", "tudl", "models")
+    info, geo = SC.load_models_info(models), {}
+    for obj in {obj for _, obj in gt}:
+        pts, _ = SC._load_vertices_mm(osp.join(models, f"obj_{obj:06d}.ply"))
+        pts = pts[np.linspace(0, len(pts) - 1, min(len(pts), 2000)).astype(int)]
+        geo[obj] = (pts, *SC.symmetry_set(info[obj], pts))
+    rel = 0.0
+    for r in bop_io.load_bop_csv(csv):
+        R_g, t_g = gt[(r["im_id"], r["obj_id"])]
+        pts, sym_R, sym_t = geo[r["obj_id"]]
+        args = (r["R"], r["t"].reshape(3), R_g, t_g, pts)
+        for fn, extra in ((EV.mssd_error, ()), (EV.mspd_error, (TP.TEMPLATE_K,))):
+            a, b = (fn(*args, *extra, sym_R, sym_t, device=d) for d in (dev, "cpu"))
+            rel = max(rel, abs(a - b) / abs(b))
+    check(rel <= 1e-5, f"the perturbed pairs' MSSD / MSPD differ by {rel:.3g} (relative) "
+          "between the card and the host")
+    return dict(perturbed_ar=card["bop19_average_recall"],
+                perturbed_ar_mssd=card["bop19_average_recall_mssd"],
+                perturbed_ar_mspd=card["bop19_average_recall_mspd"],
+                perturbed_ar_vsd=card["bop19_average_recall_vsd"], perturbed_pair_rel_err=rel,
+                perturbed_score_s_per_image=timing["seconds"] / timing["images"])
+
+
+def phase_eval_bop(dev, mesh_paths: dict, root: str, smi) -> dict:
+    """12.2: write_e2e_dataset, then the port's eval_bop.main (int8 AE,
+    refine=true, templates and refinement on the device renderer, min_score
+    0) with every kernel count set to 0 just before it and read just after:
+    every kernel of the path launched, the template set rendered from the
+    meshes, the csvs, AR from the port's scorer; then a csv of the ground
+    truth scored on the card (AR 1.0 on VSD, MSSD and MSPD), the pipeline's
+    csv scored again, timed per image, and score_card_and_host. The
+    rasterizer's launches are read around the template render and checked
+    apart from refinement's."""
+    rng = np.random.default_rng(SEED + 30)
+    t0 = time.perf_counter()
+    gt = write_e2e_dataset(root, mesh_paths, rng)
+    write_s = time.perf_counter() - t0
+    # the rasterizer's launches inside the coarse CLI's template render, read
+    # around the call to render_templates.main that it makes
+    render_main, template_launches = RT.main, []
+
+    def counted_render(argv):
+        before = RZ.rasterize.launches
+        out = render_main(argv)
+        template_launches.append(RZ.rasterize.launches - before)
+        return out
+
+    reset_counts()
+    RZ.rasterize.launches = 0
+    RT.main = counted_render
+    t0 = time.perf_counter()
+    try:
+        result = eval_bop.main([f"machine.root_dir={root}", "datasets=tudl",
+                                f"run_id={E2E_RUN}", "refine=true", "model=large",
+                                "model.serving_quant=int8", "refine_renderer=device",
+                                "min_score=0"])
+        torch.cuda.synchronize()
+    finally:
+        RT.main = render_main
+    run_s = time.perf_counter() - t0
+    launched, raster_launches = counts(), RZ.rasterize.launches
+    check(len(template_launches) == 1, f"eval_bop: {len(template_launches)} template renders")
+    template_launches = template_launches[0]
+    refine_launches = raster_launches - template_launches
+    res = result["tudl"]
+    check(res["status"] == "csv_written" and "score_predictions_refined" in res,
+          f"eval_bop: {res}")
+    tdir = osp.join(root, "datasets", "templates", "tudl")
+    n_views = len(template_object_poses(TEMPLATE_LEVEL))
+    for obj in mesh_paths:
+        pngs = [f for f in os.listdir(osp.join(tdir, f"{obj:06d}")) if f.endswith(".png")]
+        check(len(pngs) == 2 * n_views and np.load(osp.join(
+            tdir, "object_poses", f"{obj:06d}.npy")).shape == (n_views, 4, 4),
+              f"eval_bop: object {obj}'s rendered template set")
+    pred = osp.join(root, "results", f"large_{E2E_RUN}")
+    name = f"large-pbrreal-rgb-mmodel_tudl-test_{E2E_RUN}"
+    multi = bop_io.load_bop_csv(osp.join(pred, "predictions", name + "MultiHypothesis.csv"),
+                                extra_column="instance_id")
+    refined_csv = [osp.join(pred, "predictions_refined", f)
+                   for f in os.listdir(osp.join(pred, "predictions_refined"))
+                   if f.endswith(".csv") and "MultiHypothesis" not in f][0]
+    rows = bop_io.load_bop_csv(refined_csv)
+    check(len(rows) == len(gt) and all(np.isfinite(r["t"]).all() for r in rows),
+          f"eval_bop: {len(rows)} refined rows for {len(gt)} instances")
+    per_image = bop_io.group_by_image(multi, image_key="im_id")
+    batches = sum(-(-len(v) // REFINE_B) for v in per_image.values())
+    sizes = [(len(f), len(v)) for v, f, _ in map(load_mesh, mesh_paths.values())]
+    want = sum(-(-n_views // RZ.views_per_launch(F, H, W, V)) for F, V in sizes)
+    check(template_launches == want,
+          f"eval_bop: {template_launches} rasterizer launches rendering templates, {want} expected")
+    check(refine_launches == RENDERS_PER_BATCH * batches,
+          f"eval_bop: {refine_launches} rasterizer launches refining, "
+          f"{RENDERS_PER_BATCH} x {batches} expected")
+    missing = [k for k in ("match_bf16", "attention_core", "gemm_bf16", "gemm_gelu",
+                           "gemm_residual", "row_prologue") if launched[k] == 0]
+    check(not missing, f"eval_bop: kernels of the path never launched: {missing}")
+    # the ground truth as a csv, scored on the card; the pipeline's csv again, timed
+    gt_csv = osp.join(root, "gt.csv")
+    bop_io.save_bop_csv(gt_csv, [dict(scene_id=1, im_id=im, obj_id=obj, score=1.0, R=R, t=t,
+                                      time=-1) for (im, obj), (R, t) in sorted(gt.items())])
+    gt_timing, run_timing = {}, {}
+    gt_score = score_bop(gt_csv, root, "tudl", device=dev, timing=gt_timing)
+    check(all(gt_score[f"bop19_average_recall_{e}"] == 1.0 for e in ("vsd", "mssd", "mspd")),
+          f"the ground truth scores {gt_score}")
+    again = score_bop(refined_csv, root, "tudl", device=dev, timing=run_timing)
+    check(again == res["score_predictions_refined"], "scoring the refined csv twice differs")
+    perturbed = score_card_and_host(dev, root, gt)
+    rec = dict(images=E2E_IMAGES, instances=len(gt), write_s=write_s, run_s=run_s,
+               hypotheses=len(multi), batches=batches, raster_launches=raster_launches,
+               template_launches=template_launches, refine_launches=refine_launches,
+               launches=launched, **perturbed,
+               ar=res["score_predictions_refined"]["bop19_average_recall"],
+               ar_vsd=res["score_predictions_refined"]["bop19_average_recall_vsd"],
+               ar_mssd=res["score_predictions_refined"]["bop19_average_recall_mssd"],
+               ar_mspd=res["score_predictions_refined"]["bop19_average_recall_mspd"],
+               gt_ar=gt_score["bop19_average_recall"],
+               score_s_per_image=run_timing["seconds"] / run_timing["images"],
+               gt_score_s_per_image=gt_timing["seconds"] / gt_timing["images"])
+    log("eval_bop", **{k: (f"{v:.4g}" if isinstance(v, float) else v) for k, v in rec.items()
+                       if k != "launches"}, launches=repr(launched).replace(" ", ""),
+        card=repr(smi))
+    return rec
+
+
+def phase_templates(root: str, dev, smi) -> dict:
+    """12. Templates from CAD models and BOP scoring, beside phase 10's
+    dataset: 12.1 on phase 11's meshes (the dataset's two and one of the
+    99,904-face ones), 12.2 in a second dataset under root/e2e."""
+    models = osp.join(root, "datasets", "tudl", "models")
+    meshes = {"dataset_1": osp.join(models, "obj_000001.ply"),
+              "dataset_2": osp.join(models, "obj_000002.ply"),
+              "large_1": osp.join(root, "large", "obj_000001.ply")}
+    out_root = osp.join(root, "template_renders")
+    rec = {tag: template_case(dev, path, out_root, tag, smi) for tag, path in meshes.items()}
+    shutil.rmtree(out_root)
+    rec["eval_bop"] = phase_eval_bop(dev, {1: meshes["dataset_1"], 2: meshes["dataset_2"]},
+                                     osp.join(root, "e2e"), smi)
+    return rec
+
+
 def raster_record(rec: dict) -> dict:
     """The rasterizer's entry of the kernels line, at the dataset's meshes:
     launches in phase 11.4's device runs on them (3 batches), launches_cli
@@ -1646,7 +2042,10 @@ def raster_record(rec: dict) -> dict:
     tests the kernel makes (its cull boxes and row spans), with both counts,
     each launch's device time (launch_us) and the whole-view faces; the same
     at the largest meshes under "large" and on the adversarial set under
-    "adversarial"."""
+    "adversarial"; launches_templates: the launches of phase 12's template
+    renders per mesh and of its eval_bop run's template set, and
+    "templates": each 12.1 mesh's 162-view stack at 640 x 480 (faces,
+    launches, device ms per launch and per object, bound)."""
     r = rec["raster_dataset"]
     keys = ("faces", "ms", "ms_min", "ms_max", "wrapper_ms", "plain_ms", "max_abs_err",
             "bound_ms", "bound_by", "bound_ms_kernel", "tests", "tests_kernel", "whole_faces",
@@ -1657,13 +2056,22 @@ def raster_record(rec: dict) -> dict:
                  library_ms=None, **{k: r[k] for k in keys},
                  launches_cli={f"refine_{k}": v["raster_launches"] for k, v in rec["cli"].items()},
                  **{s: {k: rec[f"raster_{s}"][k] for k in keys} for s in ("large", "adversarial")})
+    tpl = {k: v for k, v in rec["templates"].items() if k != "eval_bop"}
+    entry["launches_templates"] = dict({k: v["device"]["launches"] for k, v in tpl.items()},
+                                       eval_bop=rec["templates"]["eval_bop"]["template_launches"])
+    entry["templates"] = {k: {f: v[f] for f in ("faces", "views", "views_per_launch", "ms",
+                                                "launch_ms", "bound_ms", "bound_by", "bound_share",
+                                                "tests", "plain_ms_per_view", "mismatch")}
+                          for k, v in tpl.items()}
     entry["bound_share"] = entry["bound_ms"] / entry["ms"]
-    nested = ("source", "route", "launches_cli", "large", "adversarial")
+    nested = ("source", "route", "launches_cli", "launches_templates", "large", "adversarial",
+              "templates")
     log("kernel", **{f: (f"{v:.4g}" if isinstance(v, float) else v) for f, v in entry.items()
                      if f not in nested},
         launches_cli=repr(entry["launches_cli"]).replace(" ", ""),
+        launches_templates=repr(entry["launches_templates"]).replace(" ", ""),
         **{s: repr({k: (round(v, 6) if isinstance(v, float) else v)
-                    for k, v in entry[s].items()}).replace(" ", "") for s in nested[3:]})
+                    for k, v in entry[s].items()}).replace(" ", "") for s in nested[4:]})
     return entry
 
 
@@ -1833,9 +2241,14 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 10. the CLI on the card: a BOP dataset on disk through cli.main; 11.
-    # refinement on the card, in that dataset
-    cli_rec = phase_cli(templates, dev, smi,
-                        then=lambda root, csv: phase_refinement(root, csv, dev, smi))
+    # refinement on the card, in that dataset;
+    # 12. templates from CAD models and BOP scoring, beside that dataset
+    def after_cli(root, csv):
+        rec = phase_refinement(root, csv, dev, smi)
+        rec["templates"] = phase_templates(root, dev, smi)
+        return rec
+
+    cli_rec = phase_cli(templates, dev, smi, then=after_cli)
 
     kernels = kernel_records(record, qrec, krec, stats, bf16_counts, int8_counts, forwards,
                              cli_rec)

@@ -19,13 +19,19 @@ is the fused matching kernel (ops/fused_matching) on CUDA and
 match_templates on the CPU; `serving_quant: auto` is the int8 AE (ops/qmm)
 on CUDA and off on the CPU; `feature_dtype: bf16` gives a bf16 store.
 
+A dataset with CAD models (<root>/datasets/<ds>/models) and no template set
+gets one first, as in test.py: scripts/render_templates.py renders the
+icosphere views of level data.template.level (default 1: 162 views; test.py
+reads the absent key level_templates and so always renders level 1) on
+the estimator's device: the rasterizer kernel on the card, the host C++
+renderer (test.py's own) on the CPU.
+
 Not served yet, and refused with the ROADMAP item to look up: multi-process
 runs (GIGAPOSE_COORDINATOR / GIGAPOSE_DISTRIBUTED) and store_shards > 1
-(A14), rendering missing templates from CAD models (A13 / A15), an orbax
-checkpoint directory (A12), int8 IST (serving_quant_ist, A11), the
-retrieval plots of vis_every (A9: they draw with PIL). An override whose key
-the CLI does not read (one of test.py's training or loader options) raises
-ValueError: it would change nothing.
+(A14), an orbax checkpoint directory (A12), int8 IST (serving_quant_ist,
+A11), the retrieval plots of vis_every (A9: they draw with PIL). An
+override whose key the CLI does not read (one of test.py's training or
+loader options) raises ValueError: it would change nothing.
 """
 
 from __future__ import annotations
@@ -49,6 +55,7 @@ from gigapose_tpu_torch.pipeline.estimator import (
 )
 from gigapose_tpu_torch.pipeline.runner import CoarseRunner
 from gigapose_tpu_torch.utils.config import Config, load_config
+from gigapose_tpu_torch.utils.device import resolve_device
 from gigapose_tpu_torch.utils.logging import disable_output
 
 # keys the CLI reads beside those of its config files
@@ -58,12 +65,14 @@ OPTIONAL_KEYS = ("device", "onboarding_cache", "max_images", "vis_every",
 
 def device_of(cfg: Config) -> torch.device:
     """cfg.device if given, else cuda:0; no card and no device raises."""
-    if cfg.get("device"):
-        return torch.device(str(cfg.device))
-    if not torch.cuda.is_available():
-        raise RuntimeError("the CLI runs on the CUDA card by default and none is available; "
-                           "pass device=cpu to run on the CPU")
-    return torch.device("cuda", 0)
+    return resolve_device(str(cfg.device) if cfg.get("device") else None, "the CLI",
+                          "device=cpu")
+
+
+def template_renderer(device: torch.device) -> str:
+    """The renderer of a missing template set: the device renderer (the
+    rasterizer kernel) on the card, the host C++ one elsewhere."""
+    return "device" if device.type == "cuda" else "native"
 
 
 def build_estimator(cfg: Config, tiny: bool = False) -> GigaPoseEstimator:
@@ -194,9 +203,13 @@ def main(argv=None) -> CoarseRunner:
     )
     cad_dir = osp.join(root, ds, "models")
     if not osp.isdir(template_dir) and osp.isdir(cad_dir):
-        raise NotImplementedError(
-            f"no template set at {template_dir}: rendering it from {cad_dir} needs the "
-            "rasterizer, ROADMAP A13 / A15")
+        from gigapose_tpu_torch.scripts import render_templates
+
+        renderer = template_renderer(est.device)
+        print(f"No template set at {template_dir}; rendering from {cad_dir}")
+        render_templates.main([f"cad_dir={cad_dir}", f"out_dir={template_dir}",
+                               f"level={int(cfg.data.template.level)}", f"renderer={renderer}"]
+                              + ([f"device={est.device}"] if renderer == "device" else []))
     runner = CoarseRunner.onboard(
         est,
         template_dir=template_dir,

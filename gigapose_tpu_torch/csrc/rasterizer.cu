@@ -127,7 +127,7 @@ struct FaceSetup {
 };
 
 __global__ void prep_kernel(const float* __restrict__ verts, const float* __restrict__ K,
-                            const float* __restrict__ T, int B, int V, int pixels,
+                            const float* __restrict__ T, int B, int V, int vs, int pixels,
                             float* __restrict__ cam, float* __restrict__ scr,
                             unsigned long long* __restrict__ keys,
                             unsigned long long* __restrict__ counter) {
@@ -138,7 +138,8 @@ __global__ void prep_kernel(const float* __restrict__ verts, const float* __rest
   const int b = i / V;
   const float* t = T + b * 16;
   const float* k = K + b * 9;
-  const float vx = verts[3 * i], vy = verts[3 * i + 1], vz = verts[3 * i + 2];
+  const float* p = verts + 3 * ((size_t)b * vs + (i - b * V));
+  const float vx = p[0], vy = p[1], vz = p[2];
   const float x = ((t[0] * vx + t[1] * vy) + t[2] * vz) + t[3];
   const float y = ((t[4] * vx + t[5] * vy) + t[6] * vz) + t[7];
   const float z = ((t[8] * vx + t[9] * vy) + t[10] * vz) + t[11];
@@ -154,13 +155,13 @@ __global__ void prep_kernel(const float* __restrict__ verts, const float* __rest
   }
 }
 
-// Face i = b * F + f of the pack -> its set-up; false for an invalid face
+// Face `face` of view b -> its set-up; false for an invalid face
 // (degenerate, padded or behind the camera), which has no box.
 __device__ __forceinline__ bool face_setup(const int* __restrict__ faces,
                                            const float* __restrict__ cam,
-                                           const float* __restrict__ scr, int i, int b, int V,
-                                           int H, int W, FaceSetup& s) {
-  const int* f = faces + 3 * i;
+                                           const float* __restrict__ scr, int face, int b,
+                                           int V, int fs, int H, int W, FaceSetup& s) {
+  const int* f = faces + 3 * ((size_t)b * fs + face);
   const int v0 = b * V + f[0], v1 = b * V + f[1], v2 = b * V + f[2];
   const float x0 = scr[2 * v0], y0 = scr[2 * v0 + 1];
   const float x1 = scr[2 * v1], y1 = scr[2 * v1 + 1];
@@ -288,7 +289,7 @@ __device__ __forceinline__ void test_pixel(const FaceSetup& s, int px, int py, i
 
 __global__ void __launch_bounds__(kThreads)
 face_kernel(const int* __restrict__ faces, const float* __restrict__ cam,
-            const float* __restrict__ scr, int B, int V, int F, int H, int W,
+            const float* __restrict__ scr, int B, int V, int F, int fs, int H, int W,
             unsigned long long* __restrict__ keys, int* __restrict__ big_face,
             unsigned int* __restrict__ big_start, unsigned long long* __restrict__ counter) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -298,7 +299,7 @@ face_kernel(const int* __restrict__ faces, const float* __restrict__ cam,
   unsigned long long take = 0;  // a big face: one list slot (high word), its rows (low word)
   if (i < B * F) {
     b = i / F;
-    if (face_setup(faces, cam, scr, i, b, V, H, W, s)) {
+    if (face_setup(faces, cam, scr, i - b * F, b, V, fs, H, W, s)) {
       const int bw = s.x1 - s.x0 + 1, bh = s.y1 - s.y0 + 1;
       if (bw > 0 && bh > 0) {
         if (bw * bh > kSmallBox) take = (1ull << 32) | (unsigned int)bh;
@@ -338,7 +339,7 @@ face_kernel(const int* __restrict__ faces, const float* __restrict__ cam,
 // tests its pixels.
 __global__ void __launch_bounds__(kThreads)
 big_kernel(const int* __restrict__ faces, const float* __restrict__ cam,
-           const float* __restrict__ scr, int V, int F, int H, int W,
+           const float* __restrict__ scr, int V, int F, int fs, int H, int W,
            unsigned long long* __restrict__ keys, const int* __restrict__ big_face,
            const unsigned int* __restrict__ big_start,
            const unsigned long long* __restrict__ counter) {
@@ -371,7 +372,7 @@ big_kernel(const int* __restrict__ faces, const float* __restrict__ cam,
       const int i = big_face[slot];
       b = i / F;
       face = i - b * F;
-      face_setup(faces, cam, scr, i, b, V, H, W, s);
+      face_setup(faces, cam, scr, face, b, V, fs, H, W, s);
       edge_slopes(s, slope);
     }
     const int py = s.y0 + (int)(row - start);
@@ -385,8 +386,8 @@ big_kernel(const int* __restrict__ faces, const float* __restrict__ cam,
 __global__ void __launch_bounds__(kThreads)
 resolve_kernel(const int* __restrict__ faces, const float* __restrict__ colors,
                const float* __restrict__ cam, const float* __restrict__ scr,
-               const unsigned long long* __restrict__ keys, int V, int F, int H, int W,
-               uint8_t* __restrict__ rgba, float* __restrict__ depth,
+               const unsigned long long* __restrict__ keys, int V, int fs, int cs, int H,
+               int W, uint8_t* __restrict__ rgba, float* __restrict__ depth,
                float* __restrict__ normals, int* __restrict__ face_id) {
   const int b = blockIdx.y;
   const int pix = blockIdx.x * kThreads + threadIdx.x;
@@ -407,7 +408,7 @@ resolve_kernel(const int* __restrict__ faces, const float* __restrict__ colors,
   const int best_f = (int)(key & 0xffffffffu);
   // attribute pass: barycentrics of the winning face recomputed in the
   // reference's unexpanded form (jax_renderer.py:290-326)
-  const int* f = faces + 3 * ((size_t)b * F + best_f);
+  const int* f = faces + 3 * ((size_t)b * fs + best_f);
   const int v[3] = {b * V + f[0], b * V + f[1], b * V + f[2]};
   const float x0 = scr[2 * v[0]], y0 = scr[2 * v[0] + 1];
   const float x1 = scr[2 * v[1]], y1 = scr[2 * v[1] + 1];
@@ -420,9 +421,9 @@ resolve_kernel(const int* __restrict__ faces, const float* __restrict__ colors,
   w[2] = (1.0f - w[0]) - w[1];
   float a[3];
   for (int k = 0; k < 3; ++k) a[k] = (w[k] * (1.0f / fmaxf(cam[3 * v[k] + 2], kEpsZ))) * best;
-  const float* c0 = colors + 3 * v[0];
-  const float* c1 = colors + 3 * v[1];
-  const float* c2 = colors + 3 * v[2];
+  const float* c0 = colors + 3 * ((size_t)b * cs + f[0]);
+  const float* c1 = colors + 3 * ((size_t)b * cs + f[1]);
+  const float* c2 = colors + 3 * ((size_t)b * cs + f[2]);
 
   const float* p0 = cam + 3 * v[0];
   const float* p1 = cam + 3 * v[1];
@@ -452,11 +453,13 @@ resolve_kernel(const int* __restrict__ faces, const float* __restrict__ colors,
 
 }  // namespace
 
-// keys: B*H*W uint64 scratch; big: 2*B*F int32 scratch (the big faces and
-// their first rows); counter: one uint64. B*F*H must stay below 2^32 (the
-// counter's row word).
+// vs, fs, cs: the batch strides of verts, faces and colors in rows (V, F
+// and V, or 0 for one mesh shared by every view); keys: B*H*W uint64
+// scratch; big: 2*B*F int32 scratch (the big faces and their first rows);
+// counter: one uint64. B*F*H must stay below 2^32 (the counter's row word).
 extern "C" int gp_rasterize(const float* verts, const int* faces, const float* colors,
                             const float* K, const float* T, int B, int V, int F, int H, int W,
+                            int vs, int fs, int cs,
                             float* cam, float* scr, unsigned long long* keys, int* big,
                             unsigned long long* counter, uint8_t* rgba, float* depth,
                             float* normals, int* face_id, cudaStream_t stream) {
@@ -464,17 +467,17 @@ extern "C" int gp_rasterize(const float* verts, const int* faces, const float* c
   const int pixels = B * H * W;
   const int prep = pixels > B * V ? pixels : B * V;
   prep_kernel<<<(prep + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-      verts, K, T, B, V, pixels, cam, scr, keys, counter);
+      verts, K, T, B, V, vs, pixels, cam, scr, keys, counter);
   if (F > 0) {
     int* big_face = big;
     unsigned int* big_start = reinterpret_cast<unsigned int*>(big) + (size_t)B * F;
     face_kernel<<<(B * F + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-        faces, cam, scr, B, V, F, H, W, keys, big_face, big_start, counter);
-    big_kernel<<<kBigBlocks, kThreads, 0, stream>>>(faces, cam, scr, V, F, H, W, keys, big_face,
-                                                    big_start, counter);
+        faces, cam, scr, B, V, F, fs, H, W, keys, big_face, big_start, counter);
+    big_kernel<<<kBigBlocks, kThreads, 0, stream>>>(faces, cam, scr, V, F, fs, H, W, keys,
+                                                    big_face, big_start, counter);
   }
   dim3 grid((H * W + kThreads - 1) / kThreads, B);
-  resolve_kernel<<<grid, kThreads, 0, stream>>>(faces, colors, cam, scr, keys, V, F, H, W,
-                                                rgba, depth, normals, face_id);
+  resolve_kernel<<<grid, kThreads, 0, stream>>>(faces, colors, cam, scr, keys, V, fs, cs, H,
+                                                W, rgba, depth, normals, face_id);
   return (int)cudaGetLastError();
 }

@@ -193,6 +193,9 @@ def encode_png(array: np.ndarray,
         np.asarray(filter_type, np.uint8), (H,))
     if H and int(ft.max()) > 4:
         raise ValueError(f"unknown PNG row filter {int(ft.max())}")
+    if not adaptive and not ft.any():  # filter 0 rows are the pixels' own bytes
+        rows = np.concatenate([np.zeros((H, 1), np.uint8), pix], axis=1)
+        return assemble_png(a.shape[1], H, depth, color, rows.tobytes())
     x = pix.astype(np.int16)
     left = np.zeros_like(x)
     left[:, bpp:] = x[:, :-bpp]

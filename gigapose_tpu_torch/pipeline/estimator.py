@@ -37,6 +37,7 @@ from gigapose_tpu_torch.ops.matching import match_templates
 from gigapose_tpu_torch.ops.pose_recovery import recover_poses
 from gigapose_tpu_torch.ops.ransac import ransac_affine
 from gigapose_tpu_torch.pipeline.templates import TemplateStore
+from gigapose_tpu_torch.utils.device import resolve_device
 
 
 def set_f32_matmul_precision() -> None:
@@ -225,13 +226,7 @@ class GigaPoseEstimator:
         the card (cuda:0) unless the caller names another device, such as
         "cpu". With no card and no device given it raises; it never moves
         to the CPU on its own."""
-        if device is None:
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "GigaPoseEstimator.create runs on the CUDA card by default and "
-                    "none is available; pass device='cpu' to run on the CPU"
-                )
-            device = torch.device("cuda", 0)
+        device = resolve_device(device, "GigaPoseEstimator.create")
         set_f32_matmul_precision()
         gen = torch.Generator().manual_seed(seed)
         ae_net = init_random_(AENet(model_name, compute_dtype=compute_dtype), gen)

@@ -42,6 +42,7 @@ from gigapose_tpu_torch.refiner import ops as R
 from gigapose_tpu_torch.refiner.network import CoarseScorerNet, RefinerNet, init_like_flax_
 from gigapose_tpu_torch.render.mesh_io import load_vertices
 from gigapose_tpu_torch.render.rasterizer import Rasterizer
+from gigapose_tpu_torch.utils.device import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,16 +62,6 @@ class RefinerConfig:
     # where it scores strictly higher than the refined pose; reported scores
     # stay own-frame
     keep_best_init: bool = True
-
-
-def resolve_device(device=None) -> torch.device:
-    """`device` if given, else cuda:0; no card and no device raises."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError("the refiner runs on the CUDA card by default and none is available; "
-                           "pass device='cpu' to run on the CPU")
-    return torch.device("cuda", 0)
 
 
 @contextlib.contextmanager
@@ -179,7 +170,7 @@ class RenderCompareRefiner:
                scorer_width: int = 32, device=None) -> "RenderCompareRefiner":
         """Seeded random nets in flax's init scheme (the pose head the
         identity update) on `device` (default cuda:0; no card raises)."""
-        device = resolve_device(device)
+        device = resolve_device(device, "the refiner")
         gen = torch.Generator().manual_seed(seed)
         rnet = init_like_flax_(RefinerNet(width=refiner_width), gen).to(device)
         snet = init_like_flax_(CoarseScorerNet(width=scorer_width), gen).to(device)

@@ -199,3 +199,14 @@ def load_vertices(path: str) -> np.ndarray:
         data = np.frombuffer(f.read(dtype.itemsize * n_verts), dtype=dtype, count=n_verts)
         return np.stack([data["x"].astype(np.float64), data["y"].astype(np.float64),
                          data["z"].astype(np.float64)], axis=1)
+
+
+def diameter(verts: np.ndarray, cap: int = 2000) -> float:
+    """The largest distance between two of at most `cap` vertices, evenly
+    spaced in file order, in verts' dtype (JaxRenderer.diameter on f32
+    verts, the scorer's `_diameter` on f64 ones)."""
+    v = verts
+    if len(v) > cap:
+        v = v[np.linspace(0, len(v) - 1, cap).astype(int)]
+    d2 = ((v[:, None, :] - v[None, :, :]) ** 2).sum(-1)
+    return float(np.sqrt(d2.max()))

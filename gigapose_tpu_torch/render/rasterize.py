@@ -15,7 +15,9 @@ one view, vmapped over the batch by refiner/device_render.py): per view b,
 
 Padded (0, 0, 0) faces have zero area and never win a pixel. Inputs: verts
 (B, V, 3) f32, faces (B, F, 3) int32, colors (B, V, 3) f32 in [0, 255], K
-(B, 3, 3), T (B, 4, 4) object -> camera in the units of verts. Outputs: a
+(B, 3, 3), T (B, 4, 4) object -> camera in the units of verts; the kernel
+takes verts, faces and colors each either contiguous or as one contiguous
+mesh expanded over the batch (no copy per view). Outputs: a
 dict of rgba (B, H, W, 4) uint8, depth (B, H, W) f32 (0 off the object),
 normals (B, H, W, 3) f32 and face_id (B, H, W) int32 (0 off the object).
 
@@ -278,8 +280,12 @@ def _entry_point():
 
     fn = load_library("rasterizer").gp_rasterize
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 10
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 10
     return fn
+
+
+# the inputs a launch may take as one mesh expanded over the batch (batch stride 0)
+SHARED = ("verts", "faces", "colors")
 
 
 def _launch(verts, faces, colors, K, T, height, width):
@@ -297,14 +303,13 @@ def _launch(verts, faces, colors, K, T, height, width):
             raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+        if not (t.is_contiguous() or (name in SHARED and t.stride(0) == 0 and t[0].is_contiguous())):
+            raise ValueError(f"{name} must be contiguous" + (
+                ", or one contiguous mesh expanded over the batch" if name in SHARED else ""))
     if V == 0 and F > 0:
         raise ValueError("faces without vertices")
     H, W = height, width
-    if B * max(H * W, V, F) >= 2 ** 31 or B * F * H >= 2 ** 32 or H + W > 2 ** 16:
-        raise ValueError(f"B * max(H * W, V, F) must stay below 2^31, B * F * H below 2^32 "
-                         f"and H + W at most 2^16: B={B}, {H}x{W}, V={V}, F={F}")
+    check_limits(B, V, F, H, W)
     cam = torch.empty((B, V, 3), dtype=torch.float32, device=dev)
     scr = torch.empty((B, V, 2), dtype=torch.float32, device=dev)
     # scratch: the z-buffer's (depth, face) keys, the list of faces whose
@@ -322,8 +327,10 @@ def _launch(verts, faces, colors, K, T, height, width):
     fn = _entry_point()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        rows = lambda t: t.shape[1] if t.stride(0) else 0
         err = fn(verts.data_ptr(), faces.data_ptr(), colors.data_ptr(), K.data_ptr(),
-                 T.data_ptr(), B, V, F, H, W, cam.data_ptr(), scr.data_ptr(), keys.data_ptr(),
+                 T.data_ptr(), B, V, F, H, W, rows(verts), rows(faces), rows(colors),
+                 cam.data_ptr(), scr.data_ptr(), keys.data_ptr(),
                  big.data_ptr(), counter.data_ptr(), out["rgba"].data_ptr(),
                  out["depth"].data_ptr(), out["normals"].data_ptr(), out["face_id"].data_ptr(),
                  stream)
@@ -331,6 +338,23 @@ def _launch(verts, faces, colors, K, T, height, width):
         raise RuntimeError(f"rasterizer kernel launch failed: CUDA error {err}")
     rasterize.launches += 1
     return out
+
+
+def check_limits(B: int, V: int, F: int, H: int, W: int) -> None:
+    """The kernel's index arithmetic: raises unless B * max(H * W, V, F) <
+    2^31, B * F * H < 2^32 and H + W <= 2^16."""
+    if B * max(H * W, V, F) >= 2 ** 31 or B * F * H >= 2 ** 32 or H + W > 2 ** 16:
+        raise ValueError(f"B * max(H * W, V, F) must stay below 2^31, B * F * H below 2^32 "
+                         f"and H + W at most 2^16: B={B}, {H}x{W}, V={V}, F={F}")
+
+
+def views_per_launch(faces: int, height: int, width: int, verts: int) -> int:
+    """The most views of one mesh (F faces, V vertices) at H x W that one
+    launch takes (check_limits); 0 when not even one view fits."""
+    if height + width > 2 ** 16:
+        return 0
+    by_rows = (2 ** 32 - 1) // (faces * height) if faces * height else 2 ** 31
+    return int(min(by_rows, (2 ** 31 - 1) // max(height * width, verts, faces, 1)))
 
 
 def rasterize(verts, faces, colors, K, T, height: int, width: int) -> Dict[str, torch.Tensor]:

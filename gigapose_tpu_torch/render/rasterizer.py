@@ -1,5 +1,6 @@
 """ctypes binding of the port's host rasterizer (csrc/rasterizer.cpp, the
-C++ software rasterizer of gigapose_tpu/render/rasterizer.py).
+C++ software rasterizer of gigapose_tpu/render/rasterizer.py), and the host
+renderer of an object's template views (render_template_views).
 
 The library is built with the host compiler at first use
 (kernels/build.py), never at import. Each call of `grast_render2` runs in
@@ -10,6 +11,8 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import os
+import time
 from typing import Optional, Tuple
 
 import numpy as np
@@ -96,3 +99,39 @@ class Rasterizer:
         if getattr(self, "_handle", None):
             self._lib.grast_free_mesh(self._handle)
             self._handle = None
+
+
+def render_template_views(mesh_path: str, out_dir: str, poses: Optional[np.ndarray] = None,
+                          K: Optional[np.ndarray] = None, width: int = 640, height: int = 480,
+                          level: int = 1, radius_factor: float = 0.4,
+                          mesh_unit_to_mm: Optional[float] = None,
+                          timing: Optional[dict] = None) -> int:
+    """Render one object's icosphere template set on the host rasterizer
+    (render_bop_templates' contract, render/templates.py): {view:06d}.png
+    RGBA and {view:06d}_depth.png uint16 mm; the caller saves the poses.
+
+    Default poses: templates.template_poses(level, radius_factor), in mm;
+    the mesh unit follows from the C++ diameter when mesh_unit_to_mm is
+    None. Each pose is copied, its translation divided by the unit in its
+    own dtype (f64 by default), and then cast to f32 by render(), as the
+    JAX package's native path does. -> the number of views; `timing`, if
+    given, gains render_s and encode_s."""
+    from gigapose_tpu_torch.render import templates as T
+
+    r = Rasterizer(mesh_path)
+    unit = mesh_unit_to_mm if mesh_unit_to_mm is not None else T.mm_per_unit(r.diameter)
+    if poses is None:
+        poses = T.template_poses(level, radius_factor)
+    if K is None:
+        K = T.TEMPLATE_K
+    os.makedirs(out_dir, exist_ok=True)
+    for v, pose in enumerate(poses):
+        t0 = time.perf_counter()
+        p = np.array(pose)
+        p[:3, 3] /= unit  # translation into mesh units
+        rgba, depth = r.render(K, p, width, height)
+        t1 = time.perf_counter()
+        T.write_view(out_dir, v, rgba, T.depth_mm_u16(depth, unit))
+        T.add_timing(timing, "render_s", t1 - t0)
+        T.add_timing(timing, "encode_s", time.perf_counter() - t1)
+    return len(poses)

@@ -24,6 +24,7 @@ of these statements.
 
 import os
 import os.path as osp
+import shutil
 
 import jax
 import numpy as np
@@ -178,19 +179,112 @@ def test_cli_refuses_what_it_does_not_serve(tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError, match="vis_every"):
         cli.main(base + ["device=cpu", "vis_every=5"])
     for unread in ("model.ist_net.num_attn_heads=4", "model.optim.ae_lr=1.0e-4",
-                   "machine.batch_size=8", "machine.num_workers=2", "data.template.level=2"):
+                   "machine.batch_size=8", "machine.num_workers=2",
+                   "data.template.level_templates=2"):
         with pytest.raises(ValueError, match=unread.split("=")[0]):
             cli.main(base + ["device=cpu", unread])
     monkeypatch.setenv("GIGAPOSE_TINY", "1")
     with pytest.raises(NotImplementedError, match="A11"):
         cli.main(base + ["device=cpu", "model.serving_quant=int8",
                          "model.serving_quant_ist=int8"])
-    os.rename(osp.join(root, "datasets", "templates"), osp.join(root, "no_templates"))
-    with pytest.raises(NotImplementedError, match="A13"):
-        cli.main(base + ["device=cpu"])
     monkeypatch.setenv("GIGAPOSE_COORDINATOR", "localhost:1234")
     with pytest.raises(NotImplementedError, match="A14"):
         cli.main(base + ["device=cpu"])
+
+
+def test_cli_renders_missing_templates_as_test_py(tmp_path, jax_weights):
+    """With no template set and the dataset's CAD models on disk, both CLIs
+    render the 162 views of level 1 (each into its own data.template.dir)
+    and onboard them: the port's host renders decode to test.py's pixels,
+    the pose npys are equal, and the csvs hold test.py's rows to the f32
+    store's tolerances."""
+    from PIL import Image
+
+    from gigapose_tpu_torch.dataloader.png import decode_png
+
+    root = synthetic_bop.build(str(tmp_path))
+    shutil.rmtree(osp.join(root, "datasets", "templates"))
+    common = [f"machine.root_dir={root}", "test_dataset_name=tudl",
+              "data.template.num_templates=8", "model.feature_dtype=f32"]
+    jax_cli.main(common + ["run_id=jax", f"data.template.dir={root}/tpl_jax"])
+    cli.main(common + ["run_id=port", "device=cpu", f"data.template.dir={root}/tpl_port"])
+    for obj in ("000001", "000002"):
+        views = sorted(os.listdir(osp.join(root, "tpl_port", obj)))
+        assert views == sorted(os.listdir(osp.join(root, "tpl_jax", obj)))
+        assert len(views) == 2 * 162
+        for name in views[::23]:
+            with open(osp.join(root, "tpl_port", obj, name), "rb") as f:
+                got = decode_png(f.read())
+            np.testing.assert_array_equal(got, np.asarray(Image.open(
+                osp.join(root, "tpl_jax", obj, name))))
+        np.testing.assert_array_equal(np.load(osp.join(root, "tpl_port", "object_poses",
+                                                       f"{obj}.npy")),
+                                      np.load(osp.join(root, "tpl_jax", "object_poses",
+                                                       f"{obj}.npy")))
+    for multi in (False, True):
+        assert _compare(_csv(root, "port", multi), _csv(root, "jax", multi), (1e-4, 1e-4)) == set()
+
+
+def test_cli_renders_the_configured_template_level(tmp_path, monkeypatch):
+    """Deliberate divergence: the port renders level data.template.level
+    (its configs hold level: 1); test.py reads data.template.level_templates,
+    which no config file holds, and so renders level 1 whatever
+    data.template.level says. Both CLIs are stopped at the render call."""
+    from gigapose_tpu.scripts import render_templates as jax_render
+    from gigapose_tpu_torch.scripts import render_templates as port_render
+
+    class Stop(Exception):
+        pass
+
+    calls = {}
+
+    def capture(tag):
+        def main(argv):
+            calls[tag] = dict(a.split("=", 1) for a in argv)
+            raise Stop
+        return main
+
+    monkeypatch.setattr(jax_render, "main", capture("jax"))
+    monkeypatch.setattr(port_render, "main", capture("port"))
+    monkeypatch.setenv("GIGAPOSE_TINY", "1")
+    root = synthetic_bop.build(str(tmp_path))
+    shutil.rmtree(osp.join(root, "datasets", "templates"))
+    base = [f"machine.root_dir={root}", "test_dataset_name=tudl", "data.template.level=0"]
+    with pytest.raises(Stop):
+        jax_cli.main(base)
+    with pytest.raises(Stop):
+        cli.main(base + ["device=cpu"])
+    assert calls["jax"]["level"] == "1" and calls["port"]["level"] == "0"
+    assert calls["port"]["renderer"] == "native"
+    with pytest.raises(Stop):
+        cli.main([f"machine.root_dir={root}", "test_dataset_name=tudl", "device=cpu"])
+    assert calls["port"]["level"] == "1"
+    assert load_config("test").data.template.level == 1
+
+
+def test_cli_renders_templates_on_the_estimators_device(tmp_path, monkeypatch):
+    """Deliberate divergence: test.py always renders a missing template set
+    with the host C++ renderer; the port renders it with the device
+    renderer when the estimator is on the card and with the host one (the
+    same files as test.py's) elsewhere, and takes no option for it."""
+    from gigapose_tpu_torch.scripts import render_templates as port_render
+
+    assert cli.template_renderer(torch.device("cuda", 0)) == "device"
+    assert cli.template_renderer(torch.device("cpu")) == "native"
+
+    def stop(argv):
+        raise RuntimeError(" ".join(argv))
+
+    monkeypatch.setattr(port_render, "main", stop)
+    monkeypatch.setenv("GIGAPOSE_TINY", "1")
+    root = synthetic_bop.build(str(tmp_path))
+    shutil.rmtree(osp.join(root, "datasets", "templates"))
+    base = [f"machine.root_dir={root}", "test_dataset_name=tudl", "device=cpu"]
+    with pytest.raises(RuntimeError, match="renderer=native") as info:
+        cli.main(base)
+    assert "device=" not in str(info.value)
+    with pytest.raises(ValueError, match="template_renderer"):
+        cli.main(base + ["template_renderer=device"])
 
 
 def _reference_ckpt(path, est, extra=None, drop=None):

@@ -13,7 +13,12 @@ test (tests/test_torch_render.py holds the boxes on the CPU): hit masks,
 face ids, rgba, the depth's bits and the normals equal the plain version's
 on the cube, a triangle soup, slivers, sub-pixel faces, a 9,940-face
 sphere, coincident faces (ties) and screen-space needles whose edges pass
-through pixel centres (tests/torch_meshes.py). The refine loop on the card
+through pixel centres (tests/torch_meshes.py). Template stacks at 640x480
+(icosphere views, the object at 0.4 m) are bit-equal too: a 9,940-face
+sphere, and a 99,904-face one whose 162 views take two launches
+(render/templates.py:render_view_stack, checked at the views on each side
+of the cut); the device template renderer writes, on the card, the files
+that its plain version writes on the CPU. The refine loop on the card
 against the CPU: poses and scores within 1e-3, from cuDNN's convolutions summing in another order than
 the CPU's (1e-6 relative), which a uint8 render now and then turns into one
 step at a pixel.
@@ -23,9 +28,11 @@ import numpy as np
 import pytest
 import torch
 
+from gigapose_tpu_torch.dataloader.png import decode_png
 from gigapose_tpu_torch.render import rasterize as RZ
+from gigapose_tpu_torch.render import templates as TP
 from gigapose_tpu_torch.refiner.refiner import RefinerConfig, RenderCompareRefiner
-from torch_meshes import cube, views
+from torch_meshes import cube, sphere, views
 
 pytestmark = pytest.mark.cuda
 
@@ -72,6 +79,26 @@ def test_rasterizer_refuses_what_it_does_not_take(dev):
         RZ.rasterize(args[0], args[1].transpose(1, 2).contiguous().transpose(1, 2), *args[2:], 8, 8)
 
 
+@pytest.mark.parametrize("shared", [("verts", "faces", "colors"), ("verts",), ("faces",),
+                                    ("colors",)])
+def test_rasterizer_takes_one_mesh_expanded_over_the_batch(dev, shared):
+    """verts, faces and colors given as one mesh expanded over the views
+    (batch stride 0) render as their contiguous copies, bit for bit; K and T
+    so expanded are refused."""
+    mesh = [a[:1].to(dev) for a in views("sphere", 1, 5)[:3]]
+    K, T = (a.to(dev) for a in views("sphere", 6, 5)[3:])
+    copies = [m.expand(6, *m.shape[1:]).contiguous() for m in mesh]
+    args = [m.expand(6, *m.shape[1:]) if name in shared else c
+            for name, m, c in zip(("verts", "faces", "colors"), mesh, copies)]
+    got = RZ.rasterize(*args, K, T, 64, 80)
+    want = RZ.rasterize(*copies, K, T, 64, 80)
+    assert (want["rgba"][..., 3] > 0).any()
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    with pytest.raises(ValueError, match="contiguous"):
+        RZ.rasterize(*args, K[:1].expand(6, 3, 3), T, 64, 80)
+
+
 def _write_cube_ply(path):
     verts, faces, colors = cube()
     with open(path, "w") as f:
@@ -116,3 +143,59 @@ def test_refine_batch_device_on_the_card_matches_the_cpu(dev, tmp_path):
     np.testing.assert_allclose(got_s, want_s, atol=1e-3, rtol=0)
     card.meshes.close()
     cpu.meshes.close()
+
+
+def _plain_views(verts, faces, colors, poses, dev, views_):
+    """The plain version on the card at some views of a 640x480 stack, 4 at a time."""
+    put = lambda a, n: torch.as_tensor(a, device=dev)[None].expand(n, *a.shape).contiguous()
+    out = {"rgba": [], "depth": []}
+    for s in range(0, len(views_), 4):
+        sel = views_[s:s + 4]
+        o = RZ.rasterize_plain(put(verts, len(sel)), put(faces, len(sel)), put(colors, len(sel)),
+                               put(TP.TEMPLATE_K, len(sel)),
+                               torch.as_tensor(poses[sel], device=dev), 480, 640)
+        for k in out:
+            out[k].append(o[k].cpu().numpy())
+    return {k: np.concatenate(v) for k, v in out.items()}
+
+
+@pytest.mark.parametrize("n,level,launches,check", [(71, 0, 1, None), (224, 1, 2, [0, 88, 89, 161])])
+def test_template_stack_matches_plain(dev, n, level, launches, check, monkeypatch):
+    """Icosphere views at 640x480 through the kernel, in as many launches
+    as views_per_launch allows (99,904 faces: 89 views a launch), equal to
+    the plain version bit for bit."""
+    verts, faces, colors = sphere(3, n=n)
+    poses = TP.template_poses(level).astype(np.float32)
+    poses[:, :3, 3] /= 1000.0
+    timing = {}
+    before = RZ.rasterize.launches
+    rgba, depth = TP.render_view_stack(verts, faces, colors, TP.TEMPLATE_K, poses, 480, 640, dev,
+                                       timing=timing)
+    assert RZ.rasterize.launches - before == timing["launches"] == launches
+    check = list(range(len(poses))) if check is None else check
+    want = _plain_views(verts, faces, colors, poses, dev, check)
+    assert (want["rgba"][..., 3] > 0).all(axis=(1, 2)).sum() == 0 and want["rgba"][..., 3].any()
+    np.testing.assert_array_equal(rgba[check], want["rgba"])
+    np.testing.assert_array_equal(depth[check].view(np.int32), want["depth"].view(np.int32))
+    if level == 0:  # a cut into launches of 16 equals one launch
+        cut = {}
+        monkeypatch.setattr(TP, "views_per_launch", lambda *shape: 16)
+        rgba16, depth16 = TP.render_view_stack(verts, faces, colors, TP.TEMPLATE_K, poses, 480,
+                                               640, dev, timing=cut)
+        assert cut["launches"] == 3
+        np.testing.assert_array_equal(rgba16, rgba)
+        np.testing.assert_array_equal(depth16.view(np.int32), depth.view(np.int32))
+
+
+def test_device_template_files_on_the_card_equal_the_cpu(dev, tmp_path):
+    mesh = str(tmp_path / "cube.ply")
+    _write_cube_ply(mesh)
+    before = RZ.rasterize.launches
+    assert TP.render_template_views_device(mesh, str(tmp_path / "card"), level=0, device=dev) == 42
+    assert RZ.rasterize.launches == before + 1
+    TP.render_template_views_device(mesh, str(tmp_path / "cpu"), level=0, device="cpu")
+    names = sorted(p.name for p in (tmp_path / "card").iterdir())
+    assert len(names) == 84 and names == sorted(p.name for p in (tmp_path / "cpu").iterdir())
+    for name in names:
+        got, want = (decode_png((tmp_path / d / name).read_bytes()) for d in ("card", "cpu"))
+        np.testing.assert_array_equal(got, want)

@@ -394,8 +394,8 @@ def test_config_copies_match_the_jax_files(name):
     read = {"test.yaml": ["test_dataset_name", "test_setting", "run_id", "use_multiple",
                           "store_shards", "max_num_dets_per_forward", "disable_output",
                           "save_dir"],
-            "data/bop.yaml": ["depth_scale", "template.dir", "template.num_templates",
-                              "template.scale_factor"],
+            "data/bop.yaml": ["depth_scale", "template.dir", "template.level",
+                              "template.num_templates", "template.scale_factor"],
             "machine/local.yaml": ["root_dir"]}.get(name, [
                 "model_name", "ae_net.backbone", "ist_net.descriptor_size", "testing_metric.k",
                 "testing_metric.sim_threshold", "testing_metric.patch_threshold",

@@ -50,7 +50,10 @@ def test_port_imports_no_jax_pil_yaml_or_jax_package():
                      "gigapose_tpu_torch.refiner.ops", "gigapose_tpu_torch.refiner.network",
                      "gigapose_tpu_torch.refiner.device_render",
                      "gigapose_tpu_torch.refiner.refiner", "gigapose_tpu_torch.refiner.runner",
-                     "gigapose_tpu_torch.refine"):
+                     "gigapose_tpu_torch.refine", "gigapose_tpu_torch.render.templates",
+                     "gigapose_tpu_torch.scripts.render_templates",
+                     "gigapose_tpu_torch.scripts.eval_bop", "gigapose_tpu_torch.eval.errors",
+                     "gigapose_tpu_torch.eval.scorer"):
         assert expected in result["modules"]
 
 
