@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Drives the port's coarse path, then its refinement, at the full width of
-`model=large` and of the JAX refiner (DINOv2
+Drives the port's coarse path, its refinement and its training at the full
+width of `model=large` and of the JAX refiner (DINOv2
 ViT-L/14, the default IST backbone, bf16 compute and a bf16 template store,
 k=5, sim_threshold 0.5, patch_threshold 3, pixel_threshold 14, 162
 templates per object) with seeded random weights and numpy-synthesised
@@ -125,6 +125,26 @@ inputs, twice: with the bf16 AE (`serving_quant=off`) and with the int8 AE
    the rendered template set, the csvs, AR from the port's scorer; a csv
    of the ground truth scored on the card (AR 1.0 on VSD, MSSD and MSPD)
    and the pipeline's csv scored again, timed per image ([eval_bop]).
+13. training on the card, in 12.2's dataset: 13.1 a train_pbr split of
+   TRAIN_IMAGES and a val split of VAL_IMAGES 480x640 images, both objects
+   in each at seeded poses (host renders composed by depth: rgb, depth and
+   mask_visib PNGs with adaptive rows, scene_gt, scene_gt_info, camera),
+   12.2's level-1 template sets; 13.2 `gigapose_tpu_torch.train.main` at
+   model=large (ViT-L/14 AE and the ResNet IST, f32, TF32 off),
+   machine.batch_size=12, TRAIN_STEPS steps, checkpoints and validation
+   every TRAIN_EVERY: s per step p50 / p90 (host clock to a sync), pairs/s,
+   the loader wait per step, peak memory and its share of the card, the
+   device's busy share of 3 steps on held batches (torch.profiler) and the
+   step's f32 bound counted from the nets; every loss finite, every
+   parameter with a gradient and every BatchNorm statistic moved between
+   step 1 and the last, metrics.jsonl with total and val/matching, no
+   hand-written kernel launched ([train]); 13.3 3 steps at B=2 from one
+   init on the card and on the host CPU, losses and parameters within the
+   PARITY_* tolerances ([train_parity]); 13.4 2 steps, a resume, 1 more,
+   against 3 straight with deterministic algorithms, bit-equal
+   ([train_resume]); 13.5 the coarse CLI with the int8 AE on phase 10's
+   first SERVE_IMAGES images from 13.2's checkpoint directory, its csvs,
+   the served IST's weights and phase 10's launch formula ([train_serve]).
 
 Every kernel count is set to 0 just before a path is driven and read just
 after; launches made to compare a kernel with its plain version are not
@@ -163,7 +183,9 @@ from gigapose_tpu_torch import cli
 from gigapose_tpu_torch import refine as refine_cli
 from gigapose_tpu_torch.dataloader import bop_io
 from gigapose_tpu_torch.dataloader.png import decode_png, encode_png
+from gigapose_tpu_torch.dataloader.scene import DirSceneSource
 from gigapose_tpu_torch.dataloader.test_set import InferenceDataset
+from gigapose_tpu_torch.dataloader.train_set import TrainLoader, prepare_train_batch
 from gigapose_tpu_torch.eval import errors as EV
 from gigapose_tpu_torch.eval import scorer as SC
 from gigapose_tpu_torch.eval import score_bop
@@ -192,6 +214,9 @@ from gigapose_tpu_torch.render.mesh_io import load_mesh
 from gigapose_tpu_torch.render.rasterizer import Rasterizer
 from gigapose_tpu_torch.scripts import eval_bop
 from gigapose_tpu_torch.scripts import render_templates as RT
+from gigapose_tpu_torch.training.checkpoint import serving_weights
+from gigapose_tpu_torch.training.loop import FitConfig, fit
+from gigapose_tpu_torch.training.state import OptimConfig, TrainState, train_step
 
 SEED = 0
 MODEL = "dinov2_vitl14"
@@ -232,7 +257,7 @@ HOST_SOURCES = ("rasterizer.cpp",)  # built with the host compiler
 # phase 10: test images, detections per test image (image i has
 # CLI_DETECTIONS[i % 6]), and the CLI's chunk (test.yaml's
 # max_num_dets_per_forward)
-CLI_IMAGES = 200
+CLI_IMAGES = 100  # 100 rather than 200 keeps the script near half its time limit
 CLI_DETECTIONS = (3, 5, 7, 10, 4, 8)
 CLI_CHUNK = 4
 # the CLI's poses against the estimator called directly: the CPU slice
@@ -2034,6 +2059,393 @@ def phase_templates(root: str, dev, smi) -> dict:
     return rec
 
 
+# 13. training on the card: gigapose_tpu_torch.train at model=large (ViT-L/14
+# AE, the ResNet IST with descriptor 256, f32 parameters and compute, TF32
+# off) on a train_pbr split rendered from phase 11's meshes beside 12.2's
+# dataset, with 12.2's level-1 template sets; then the card against the
+# host, a resume, and the coarse CLI serving the trained checkpoint.
+TRAIN_IMAGES, VAL_IMAGES = 40, 10  # 480 x 640, both objects in each
+TRAIN_B = 12  # machine.batch_size of the train config (the reference's local.yaml)
+TRAIN_STEPS, TRAIN_EVERY = 30, 15  # max_steps; checkpoint_every and val_every
+TRAIN_RUN = "train"
+PARITY_B, PARITY_STEPS, PARITY_WARM = 2, 3, 2
+SERVE_IMAGES = 40  # phase 10's first images, served from the trained checkpoint
+# 13.3, the card against the host after PARITY_STEPS steps from one init
+# with warm-up 2 (lr 0, half, full): losses within PARITY_LOSS_RTOL; every
+# parameter within 2 x its net's summed lr and all but PARITY_FAR_SHARE of
+# them within a tenth of it (Adam moves every entry by about lr, so one
+# whose gradient is within the two devices' rounding of 0 may move either
+# way; tests/test_torch_train_step.py; the IST's BatchNorm over a batch of
+# 2 makes its backbone gradient ill-conditioned: 2.8 % of its entries moved
+# apart on an H100, PERF.md); the BatchNorm statistics within PARITY_STATS_ATOL
+PARITY_LOSS_RTOL, PARITY_FAR_SHARE, PARITY_STATS_ATOL = 1e-3, 0.05, 1e-3
+
+
+def write_train_split(ds: str, split: str, mesh_paths: dict, n_images: int, rng) -> int:
+    """A BOP split <ds>/<split>/000001 of n_images 480x640 images, each with
+    both objects at seeded poses (random rotations, 0.48-0.6 m away, one on
+    each side of the optical axis), host renders composed by depth on a
+    noise background: rgb and uint16-mm depth PNGs and a mask_visib PNG per
+    instance (adaptive rows), scene_camera, scene_gt, scene_gt_info. -> the
+    instances written."""
+    sdir = osp.join(ds, split, "000001")
+    for sub in ("rgb", "depth", "mask_visib"):
+        os.makedirs(osp.join(sdir, sub))
+    rasters = {obj: Rasterizer(path) for obj, path in sorted(mesh_paths.items())}
+    K = TP.TEMPLATE_K
+    cams, gts, infos, n = {}, {}, {}, 0
+    for im in range(n_images):
+        T = random_poses(rng, len(rasters))
+        rgb = rng.integers(0, 60, (H, W, 3), dtype=np.uint8)
+        zbuf = np.zeros((H, W), np.float32)
+        owner = np.zeros((H, W), np.int32)
+        full = {}
+        for k, obj in enumerate(sorted(rasters)):
+            T[k, :3, 3] *= 1000.0  # mm, the meshes' unit
+            T[k, 0, 3] = (-1) ** k * rng.uniform(90, 110)
+            rgba, depth = rasters[obj].render(K, T[k], W, H)
+            full[obj] = depth > 0
+            win = (depth > 0) & ((zbuf == 0) | (depth < zbuf))
+            zbuf[win], owner[win], rgb[win] = depth[win], obj, rgba[win][:, :3]
+        cams[str(im)] = {"cam_K": K.reshape(-1).tolist(), "depth_scale": 1.0}
+        gts[str(im)], infos[str(im)] = [], []
+        for i, obj in enumerate(sorted(rasters)):
+            mask = owner == obj
+            ys, xs = np.nonzero(mask)
+            gts[str(im)].append({"obj_id": obj, "cam_R_m2c": T[i, :3, :3].reshape(-1).tolist(),
+                                 "cam_t_m2c": T[i, :3, 3].tolist()})
+            infos[str(im)].append({"bbox_visib": [int(xs.min()), int(ys.min()),
+                                                  int(xs.max() - xs.min() + 1),
+                                                  int(ys.max() - ys.min() + 1)],
+                                   "visib_fract": float(mask.sum() / full[obj].sum())})
+            with open(osp.join(sdir, "mask_visib", f"{im:06d}_{i:06d}.png"), "wb") as f:
+                f.write(encode_png(mask.astype(np.uint8) * 255, "adaptive"))
+            n += 1
+        with open(osp.join(sdir, "rgb", f"{im:06d}.png"), "wb") as f:
+            f.write(encode_png(rgb, "adaptive"))
+        with open(osp.join(sdir, "depth", f"{im:06d}.png"), "wb") as f:
+            f.write(encode_png(np.clip(zbuf, 0, 65535).astype(np.uint16), "adaptive"))
+    for name, data in (("scene_camera", cams), ("scene_gt", gts), ("scene_gt_info", infos)):
+        bop_io.save_json(osp.join(sdir, f"{name}.json"), data)
+    return n
+
+
+def train_step_work(ae, ist, B: int, dev) -> dict:
+    """The f32 work of one training step of B pairs, counted from the nets:
+    the multiply-adds of every convolution and linear layer in one forward
+    of one crop (forward hooks on a call at B = 1: output elements x inputs
+    per output, x 2) and the AE's attention products (QK^T and AV: 4 x depth
+    x heads x N^2 x head width); each net runs on 2B crops (src and tar),
+    the backward costs twice the forward. Bytes: each parameter, its
+    gradient and both Adam moments read and written once, and the 2B crops
+    read. -> per-crop forward GFLOP of each net, step TFLOP, the bound."""
+    x = torch.zeros(1, 3, 224, 224, device=dev)
+
+    def forward_flops(net, call) -> float:
+        total = [0.0]
+
+        def hook(m, inp, out):
+            per_out = (m.in_channels // m.groups * m.kernel_size[0] * m.kernel_size[1]
+                       if isinstance(m, torch.nn.Conv2d) else m.in_features)
+            total[0] += 2.0 * out.numel() * per_out
+
+        handles = [m.register_forward_hook(hook) for m in net.modules()
+                   if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]
+        try:
+            with torch.no_grad():
+                call()
+        finally:
+            for h in handles:
+                h.remove()
+        return total[0]
+
+    training = {net: net.training for net in (ae, ist)}
+    ae.eval(), ist.eval()
+    c = ae.vit.cfg
+    per_crop = {"ae": forward_flops(ae, lambda: ae(x))
+                + 4.0 * c.depth * c.num_heads * TOKENS * TOKENS * (c.embed_dim // c.num_heads),
+                "ist": forward_flops(ist, lambda: ist.backbone(x))}
+    ae.train(training[ae]), ist.train(training[ist])
+    step_ops = 3 * 2 * B * (per_crop["ae"] + per_crop["ist"])
+    params = sum(p.numel() for net in (ae, ist) for p in net.parameters())
+    nbytes = 4.0 * params * 8 + 2 * B * 3 * 224 * 224 * 4
+    return dict(fwd_gflop_per_crop={k: v / 1e9 for k, v in per_crop.items()},
+                step_tflop=step_ops / 1e12, params=params, **bound(step_ops, "f32", nbytes))
+
+
+def _state_copy(state) -> dict:
+    return {net: {k: v.detach().clone() for k, v in m.state_dict().items()}
+            for net, m in state.nets.items()}
+
+
+def phase_train_run(e2e_root: str, dev, smi) -> dict:
+    """13.2: train.main at model=large, machine.batch_size TRAIN_B, TRAIN_STEPS
+    steps, checkpoints and validation every TRAIN_EVERY, on the card; each
+    step's host time to a synchronize and its wait on the loader (fit's
+    timing), peak memory, the state after step 1 (a wrapper of the loop's
+    train_step). Checks: no hand-written kernel launched, every logged loss
+    finite, metrics.jsonl with total and val/matching, every parameter with
+    a gradient and every BatchNorm statistic moved between step 1 and the
+    last. Then 4 more steps of held batches, 3 of them under torch.profiler
+    (the device's busy share without the loader), and the step's bound."""
+    from gigapose_tpu_torch import train as train_cli
+    from gigapose_tpu_torch.training import loop as TLOOP
+
+    timing, first = {}, {}
+    fit_orig, step_orig = train_cli.fit, TLOOP.train_step
+
+    def fit_timed(*args, **kw):
+        return fit_orig(*args, timing=timing, **kw)
+
+    def step_kept(state, batch):
+        out = step_orig(state, batch)
+        if state.step == 1:
+            first.update(_state_copy(state))
+        return out
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    train_cli.fit, TLOOP.train_step = fit_timed, step_kept
+    t0 = time.perf_counter()
+    try:
+        state = train_cli.main([f"machine.root_dir={e2e_root}", "train_dataset_name=tudl",
+                                "model=large", f"machine.batch_size={TRAIN_B}",
+                                f"max_steps={TRAIN_STEPS}", f"checkpoint_every={TRAIN_EVERY}",
+                                f"val_every={TRAIN_EVERY}", "val_dataset_name=tudl",
+                                "val_split=val", "log_every=1", f"run_id={TRAIN_RUN}"])
+        torch.cuda.synchronize()
+    finally:
+        train_cli.fit, TLOOP.train_step = fit_orig, step_orig
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    launched = counts()
+    check(not any(launched.values()), f"training launched hand-written kernels: {launched}")
+    check(state.step == TRAIN_STEPS and len(timing["step_s"]) == TRAIN_STEPS,
+          f"training stopped at step {state.step}")
+    save_dir = osp.join(e2e_root, "results", f"large_{TRAIN_RUN}")
+    with open(osp.join(save_dir, "logs", "metrics.jsonl")) as f:
+        lines = [json.loads(line) for line in f]
+    train_lines = [m for m in lines if "total" in m]
+    check(len(train_lines) == TRAIN_STEPS and any("val/matching" in m for m in lines),
+          f"metrics.jsonl: {len(train_lines)} step lines, validation "
+          f"{any('val/matching' in m for m in lines)}")
+    check(all(np.isfinite(v) for m in lines for v in m.values()), "a logged metric is not finite")
+    last = _state_copy(state)
+    stuck = [f"{net}.{k}" for net in last for k, v in last[net].items()
+             if not k.endswith("num_batches_tracked") and not k.startswith("vit.norm.")
+             and torch.equal(v, first[net][k])]
+    # vit.norm (the final LayerNorm) lies after x_prenorm: no gradient, and
+    # its decay (lr x wd x p) stays below an ulp
+    check(not stuck, f"not moved between step 1 and step {TRAIN_STEPS}: {stuck}")
+
+    steps = np.array(timing["step_s"][1:])  # the first step warms cuBLAS / cuDNN up
+    waits = np.array(timing["wait_s"][1:])
+    held = iter(_held_batches(e2e_root, SEED + 42, TRAIN_B, 4))
+    prof = device_profile(lambda: train_step(state, prepare_train_batch(next(held), dev)), iters=3)
+    work = train_step_work(state.ae_net, state.ist_net, TRAIN_B, dev)
+    total = torch.cuda.get_device_properties(dev).total_memory
+    rec = dict(steps=TRAIN_STEPS, batch=TRAIN_B, run_s=run_s, first_step_s=timing["step_s"][0],
+               step_s_p50=float(np.median(steps)), step_s_p90=float(np.percentile(steps, 90)),
+               pairs_per_s=TRAIN_B / float(np.median(steps)),
+               wait_s_mean=float(waits.mean()), wait_s_p50=float(np.median(waits)),
+               wait_share=float(waits.sum() / steps.sum()),
+               held_step_ms=prof["wall_ms"], held_busy_ms=prof["busy_ms"],
+               busy_share=prof["busy_share"], peak_gib=peak / 2**30, peak_share=peak / total,
+               final_total=train_lines[-1]["total"], **work,
+               ckpt_dir=osp.join(save_dir, "checkpoints"))
+    top = sorted(prof["kernels_us"].items(), key=lambda kv: -kv[1])[:12]
+    rec["top_kernels_ms"] = {name[:60]: us / 1e3 for name, us in top}
+    log("train_kernels", **{f"k{i}": f"{us / 1e3:.2f}ms:{name[:60].replace(' ', '')}"
+                            for i, (name, us) in enumerate(top)})
+    log("train", **{k: (f"{v:.4g}" if isinstance(v, float) else v) for k, v in rec.items()
+                    if k not in ("fwd_gflop_per_crop", "ckpt_dir", "top_kernels_ms")},
+        fwd_gflop_per_crop=repr({k: round(v, 2) for k, v in work["fwd_gflop_per_crop"].items()})
+        .replace(" ", ""), card=repr(smi))
+    del state
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _train_loader(e2e_root: str, seed: int, batch: int) -> TrainLoader:
+    return TrainLoader(
+        scene_source=DirSceneSource(osp.join(e2e_root, "datasets", "tudl", "train_pbr")),
+        template_dir=osp.join(e2e_root, "datasets", "templates", "tudl"), batch_size=batch,
+        seed=seed)
+
+
+def _held_batches(e2e_root: str, seed: int, batch: int, n: int) -> list:
+    return [r for _, r in zip(range(n), _train_loader(e2e_root, seed, batch))]
+
+
+def phase_train_parity(e2e_root: str, nets, dev) -> dict:
+    """13.3: the same init and the same PARITY_STEPS batches of PARITY_B at
+    full width, TF32 off, through train_step on the card and on the host
+    CPU: each step's losses, then the parameters and BatchNorm statistics
+    (tolerances above)."""
+    recs = _held_batches(e2e_root, SEED + 43, PARITY_B, PARITY_STEPS)
+    cfg = OptimConfig(warm_up_steps=PARITY_WARM)
+    runs = []
+    for where in (dev, torch.device("cpu")):
+        state = TrainState(copy.deepcopy(nets[0]).to(where), copy.deepcopy(nets[1]).to(where), cfg)
+        t0 = time.perf_counter()
+        losses = [{k: float(v) for k, v in train_step(state, prepare_train_batch(r, where)).items()}
+                  for r in recs]
+        runs.append((state, losses, time.perf_counter() - t0))
+    (card, card_losses, card_s), (host, host_losses, host_s) = runs
+    loss_gap = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12)
+                   for a, b in zip(card_losses, host_losses) for k in b)
+    check(loss_gap <= PARITY_LOSS_RTOL and all(np.isfinite(v) for m in card_losses
+                                                  for v in m.values()),
+          f"card and host losses {loss_gap:.3g} apart (relative)")
+    lr_sum = {"ae": cfg.ae_lr * 1.5, "ist": cfg.ist_lr * 1.5}  # lr 0, 1/2, 1
+    rec = dict(steps=PARITY_STEPS, batch=PARITY_B, loss_rel_gap=loss_gap, card_s=card_s,
+               host_s=host_s)
+    for net in ("ae", "ist"):
+        a, b = card.nets[net].state_dict(), host.nets[net].state_dict()
+        worst, far, n, stats = 0.0, 0, 0, 0.0
+        for k, v in b.items():
+            d = (a[k].cpu().double() - v.double()).abs()
+            if k.endswith(("running_mean", "running_var")):
+                stats = max(stats, float(d.max()))
+            elif not k.endswith("num_batches_tracked"):
+                worst = max(worst, float(d.max()))
+                far += int((d > 0.1 * lr_sum[net]).sum())
+                n += d.numel()
+        check(worst <= 2 * lr_sum[net] and far <= PARITY_FAR_SHARE * n
+              and stats <= PARITY_STATS_ATOL,
+              f"{net}: card and host parameters {worst:.3g} apart ({far} of {n} beyond "
+              f"{0.1 * lr_sum[net]:.3g}), statistics {stats:.3g}")
+        rec[f"{net}_param_max_gap"], rec[f"{net}_far_share"] = worst, far / n
+        if net == "ist":
+            rec["ist_stats_max_gap"] = stats
+    log("train_parity", **{k: (f"{v:.4g}" if isinstance(v, float) else v) for k, v in rec.items()})
+    del card, host, runs
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_train_resume(e2e_root: str, nets, dev, tmp: str) -> dict:
+    """13.4: 2 steps with a checkpoint, then a resume for 1 more, against 3
+    steps straight on the card, with deterministic algorithms (cuDNN's and
+    the gathers' backward): equal bit for bit (parameters, BatchNorm
+    statistics, Adam moments, the last step's metrics)."""
+    cfg = OptimConfig(warm_up_steps=PARITY_WARM)
+
+    def run(max_steps, ckpt_dir, resume=False):
+        metrics = {}
+        state = fit(copy.deepcopy(nets[0]), copy.deepcopy(nets[1]),
+                    _train_loader(e2e_root, SEED + 44, PARITY_B), dev, cfg,
+                    FitConfig(max_steps=max_steps, log_every=1, checkpoint_every=2,
+                              ckpt_dir=ckpt_dir),
+                    metrics_hook=lambda step, m: metrics.setdefault(step, m), resume=resume)
+        return state, metrics
+
+    was_det, was_cudnn = (torch.are_deterministic_algorithms_enabled(),
+                          torch.backends.cudnn.deterministic)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        straight, m_straight = run(PARITY_STEPS, None)
+        run(PARITY_STEPS - 1, osp.join(tmp, "resumed"))
+        resumed, m_resumed = run(PARITY_STEPS, osp.join(tmp, "resumed"), resume=True)
+    finally:
+        torch.use_deterministic_algorithms(was_det)
+        torch.backends.cudnn.deterministic = was_cudnn
+    gaps = {}
+    for net in ("ae", "ist"):
+        a, b = straight.nets[net].state_dict(), resumed.nets[net].state_dict()
+        gaps[net] = max(float((a[k].double() - b[k].double()).abs().max()) for k in a)
+        for m in ("mu", "nu"):
+            sa, sb = straight.opt_state[net][m], resumed.opt_state[net][m]
+            gaps[f"{net}_{m}"] = max(float((sa[k] - sb[k]).abs().max()) for k in sa)
+    same_metrics = m_resumed.get(PARITY_STEPS) == m_straight.get(PARITY_STEPS)
+    check(resumed.step == PARITY_STEPS and same_metrics and not any(gaps.values()),
+          f"the resumed run differs from the straight one: {gaps}, metrics {same_metrics}")
+    rec = dict(steps=PARITY_STEPS, resumed_at=PARITY_STEPS - 1, max_gaps=gaps,
+               last_total=m_resumed[PARITY_STEPS]["total"])
+    log("train_resume", steps=PARITY_STEPS, resumed_at=PARITY_STEPS - 1, bit_equal=True,
+        gaps=repr(gaps).replace(" ", ""))
+    del straight, resumed
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_train_serve(cli_root: str, ckpt_dir: str, smi) -> dict:
+    """13.5: the coarse CLI on phase 10's dataset (its first SERVE_IMAGES
+    images) with model.checkpoint_path=13.2's checkpoint directory and the
+    int8 AE, every kernel count set to 0 just before it and read just
+    after: the csvs written (one row per target instance, five hypotheses
+    each, finite poses), the IST served with the checkpoint's weights, and
+    the launches of phase 10's formula for a cold run (onboarding and
+    forwards through the int8 AE, one matching launch per forward)."""
+    reset_counts()
+    t0 = time.perf_counter()
+    runner = cli.main([f"machine.root_dir={cli_root}", "test_dataset_name=tudl", "model=large",
+                       f"run_id={TRAIN_RUN}", "model.serving_quant=int8",
+                       f"model.checkpoint_path={ckpt_dir}", f"max_images={SERVE_IMAGES}"])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launched = counts()
+    forwards = sum(-(-cli_detections(im) // CLI_CHUNK) for im in range(SERVE_IMAGES))
+    onboard_calls = 2 * -(-NUM_VIEWS // 64)
+    est = runner.estimator
+    check(type(est.ae_net).__name__ == "AENetInt8" and runner.timing["forwards"] == forwards,
+          f"serving: AE {type(est.ae_net).__name__}, {runner.timing['forwards']} forwards")
+    want = expected_counts(forwards, len(est.ae_net.blocks), forwards + onboard_calls)
+    check(launched == want, f"serving the checkpoint: launches {launched}, expected {want}")
+    _, ist_sd, path = serving_weights(ckpt_dir)
+    served = est.ist_net.state_dict()
+    check(all(torch.equal(served[k].cpu(), v) for k, v in ist_sd.items()),
+          f"the served IST is not {path}'s")
+    targets = bop_io.load_json(osp.join(cli_root, "datasets", "tudl", "test_targets_bop19.json"))
+    rows = sum(t["inst_count"] for t in targets if t["im_id"] < SERVE_IMAGES)
+    pred = osp.join(cli_root, "results", f"large_{TRAIN_RUN}", "predictions")
+    name = f"large-pbrreal-rgb-mmodel_tudl-test_{TRAIN_RUN}"
+    top1 = bop_io.load_bop_csv(osp.join(pred, name + ".csv"))
+    multi = bop_io.load_bop_csv(osp.join(pred, name + "MultiHypothesis.csv"),
+                                extra_column="instance_id")
+    check(len(top1) == rows and len(multi) == 5 * rows
+          and all(np.isfinite(r["t"]).all() and np.isfinite(r["R"]).all() for r in multi),
+          f"serving: {len(top1)} / {len(multi)} rows for {rows} target instances")
+    t = runner.timing
+    rec = dict(images=t["images"], forwards=forwards, rows=rows, run_s=run_s,
+               images_per_s=t["images"] / t["run_s"], checkpoint=osp.basename(path),
+               launches=launched)
+    log("train_serve", **{k: (f"{v:.4g}" if isinstance(v, float) else v) for k, v in rec.items()
+                          if k != "launches"}, launches=repr(launched).replace(" ", ""),
+        card=repr(smi))
+    del runner, est
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_training(cli_root: str, dev, smi) -> dict:
+    """13. Training on the card, in 12.2's dataset (cli_root/e2e): 13.1 its
+    train_pbr and val splits; 13.2 the train CLI at model=large; 13.3 the
+    card against the host; 13.4 a resume; 13.5 the coarse CLI serving
+    13.2's checkpoint on phase 10's dataset."""
+    from gigapose_tpu_torch import train as train_cli
+
+    e2e_root = osp.join(cli_root, "e2e")
+    ds = osp.join(e2e_root, "datasets", "tudl")
+    meshes = {o: osp.join(ds, "models", f"obj_{o:06d}.ply") for o in (1, 2)}
+    rng = np.random.default_rng(SEED + 40)
+    t0 = time.perf_counter()
+    n_train = write_train_split(ds, "train_pbr", meshes, TRAIN_IMAGES, rng)
+    n_val = write_train_split(ds, "val", meshes, VAL_IMAGES, rng)
+    log("train_data", train_images=TRAIN_IMAGES, train_instances=n_train, val_images=VAL_IMAGES,
+        val_instances=n_val, templates=f"2x{NUM_VIEWS}", write_s=f"{time.perf_counter() - t0:.2f}")
+    rec = {"run": phase_train_run(e2e_root, dev, smi)}
+    cfg = cli.load_cli_config(["model=large", f"machine.root_dir={e2e_root}"], ("device",),
+                              name="train")
+    nets = train_cli.build_nets(cfg, tiny=False)  # on the host, seeded
+    rec["parity"] = phase_train_parity(e2e_root, nets, dev)
+    with tempfile.TemporaryDirectory(prefix="gigapose_resume_") as tmp:
+        rec["resume"] = phase_train_resume(e2e_root, nets, dev, tmp)
+    rec["serve"] = phase_train_serve(cli_root, rec["run"]["ckpt_dir"], smi)
+    return rec
+
+
 def raster_record(rec: dict) -> dict:
     """The rasterizer's entry of the kernels line, at the dataset's meshes:
     launches in phase 11.4's device runs on them (3 batches), launches_cli
@@ -2242,10 +2654,12 @@ def main() -> int:
 
     # 10. the CLI on the card: a BOP dataset on disk through cli.main; 11.
     # refinement on the card, in that dataset;
-    # 12. templates from CAD models and BOP scoring, beside that dataset
+    # 12. templates from CAD models and BOP scoring, beside that dataset;
+    # 13. training on the card, in 12's dataset, served on 10's
     def after_cli(root, csv):
         rec = phase_refinement(root, csv, dev, smi)
         rec["templates"] = phase_templates(root, dev, smi)
+        rec["training"] = phase_training(root, dev, smi)
         return rec
 
     cli_rec = phase_cli(templates, dev, smi, then=after_cli)

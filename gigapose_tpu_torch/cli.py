@@ -4,15 +4,18 @@ Usage:
     python -m gigapose_tpu_torch.cli test_dataset_name=lmo run_id=0 \
         [model=small] [device=cpu] [key=value ...]
 
-Pipeline: load config -> build the estimator (seeded random weights, or a
-reference `.ckpt` at model.checkpoint_path) -> onboard templates -> run the
+Pipeline: load config -> build the estimator (seeded random weights, or
+the weights at model.checkpoint_path: a checkpoint of the port's trainer, a
+step_*.pt file or its checkpoint directory, or a reference `.ckpt`) ->
+onboard templates -> run the
 BOP test split -> write npz batches + BOP csv under
 <machine.root_dir>/results/<model>_<run_id>/predictions/.
 
 It runs on cuda:0 unless `device=` names another device (the tests pass
 `device=cpu`); with no card and no device it raises. `GIGAPOSE_TINY=1` in
 the environment builds tiny nets with seeded random weights instead of the
-configured ones (the full pipeline at a small size, as in test.py).
+configured ones (the full pipeline at a small size, as in test.py), or with
+the weights of model.checkpoint_path when it is given.
 
 Precision and kernels, as test.py decides them: `use_pallas_matching: auto`
 is the fused matching kernel (ops/fused_matching) on CUDA and
@@ -28,8 +31,9 @@ renderer (test.py's own) on the CPU.
 
 Not served yet, and refused with the ROADMAP item to look up: multi-process
 runs (GIGAPOSE_COORDINATOR / GIGAPOSE_DISTRIBUTED) and store_shards > 1
-(A14), an orbax checkpoint directory (A12), int8 IST (serving_quant_ist,
-A11), the retrieval plots of vis_every (A9: they draw with PIL). An
+(A14), an orbax checkpoint directory of the JAX trainer (A12), int8 IST
+(serving_quant_ist, A11), the retrieval plots of vis_every (A9: they draw
+with PIL). An
 override whose key the CLI does not read (one of test.py's training or
 loader options) raises ValueError: it would change nothing.
 """
@@ -54,6 +58,7 @@ from gigapose_tpu_torch.pipeline.estimator import (
     set_f32_matmul_precision,
 )
 from gigapose_tpu_torch.pipeline.runner import CoarseRunner
+from gigapose_tpu_torch.training.checkpoint import serving_weights
 from gigapose_tpu_torch.utils.config import Config, load_config
 from gigapose_tpu_torch.utils.device import resolve_device
 from gigapose_tpu_torch.utils.logging import disable_output
@@ -97,6 +102,8 @@ def build_estimator(cfg: Config, tiny: bool = False) -> GigaPoseEstimator:
             Regressor(64, hidden_dim=32),
         ), gen)
         est = GigaPoseEstimator(ae.to(device).eval(), ist.to(device).eval(), est_cfg)
+        if cfg.model.get("checkpoint_path"):
+            load_checkpoint_weights(est, str(cfg.model.checkpoint_path))
         return _maybe_quantize(est, cfg)
 
     cdt = str(cfg.model.get("compute_dtype") or "bf16")
@@ -109,17 +116,26 @@ def build_estimator(cfg: Config, tiny: bool = False) -> GigaPoseEstimator:
     )
     ckpt = cfg.model.get("checkpoint_path")
     if ckpt:
-        path = str(ckpt)
-        if osp.isdir(path):
-            raise NotImplementedError(
-                f"{path}: loading an orbax train-state checkpoint is ROADMAP A12")
-        if not (path.endswith(".ckpt") and osp.isfile(path)):
-            raise FileNotFoundError(f"model.checkpoint_path={path}: no such .ckpt file")
-        ae_sd, ist_sd = gigapose_ckpt_to_torch(path)
-        est.ae_net.load_state_dict(ae_sd, strict=True)
-        est.ist_net.load_state_dict(ist_sd, strict=True)
-        print(f"Loaded torch checkpoint {path}")
+        load_checkpoint_weights(est, str(ckpt))
     return _maybe_quantize(est, cfg)
+
+
+def load_checkpoint_weights(est: GigaPoseEstimator, path: str) -> None:
+    """Load model.checkpoint_path into the estimator's nets: a checkpoint of
+    the port's trainer (a step_*.pt file, or its checkpoint directory) or a
+    reference lightning `.ckpt`. A directory without a step_*.pt (an orbax
+    train state) raises NotImplementedError."""
+    if osp.isdir(path) or path.endswith(".pt"):
+        if not osp.exists(path):
+            raise FileNotFoundError(f"model.checkpoint_path={path}: no such checkpoint")
+        ae_sd, ist_sd, path = serving_weights(path)
+    elif path.endswith(".ckpt") and osp.isfile(path):
+        ae_sd, ist_sd = gigapose_ckpt_to_torch(path)
+    else:
+        raise FileNotFoundError(f"model.checkpoint_path={path}: no such .ckpt or .pt file")
+    est.ae_net.load_state_dict(ae_sd, strict=True)
+    est.ist_net.load_state_dict(ist_sd, strict=True)
+    print(f"Loaded torch checkpoint {path}")
 
 
 def _maybe_quantize(est: GigaPoseEstimator, cfg: Config) -> GigaPoseEstimator:
@@ -155,24 +171,24 @@ def _has_key(cfg: dict, dotted: str) -> bool:
     return True
 
 
-def load_cli_config(argv, optional_keys) -> Config:
-    """The `test` config with `argv`'s overrides (default sys.argv[1:]);
+def load_cli_config(argv, optional_keys, name: str = "test") -> Config:
+    """The `name` config with `argv`'s overrides (default sys.argv[1:]);
     `model=<name>` picks the model group file. An override of a key that is
     neither in the config files nor in `optional_keys` raises ValueError: it
     would change nothing. Multi-process runs raise NotImplementedError."""
     if os.environ.get("GIGAPOSE_COORDINATOR") or os.environ.get("GIGAPOSE_DISTRIBUTED") == "1":
-        raise NotImplementedError("multi-process inference is ROADMAP A14")
+        raise NotImplementedError("multi-process runs are ROADMAP A14")
     overrides = list(argv if argv is not None else sys.argv[1:])
     # hydra-style group selection: model=small swaps the model group file
     group_sel = [o.split("=", 1)[1] for o in overrides if o.startswith("model=")]
     groups = {"model": group_sel[0]} if group_sel else None
     rest = [o for o in overrides if not o.startswith("model=")]
-    files = load_config("test", groups=groups)
+    files = load_config(name, groups=groups)
     unread = [k for k in (o.split("=", 1)[0] for o in rest if "=" in o)
               if not (_has_key(files, k) or k in optional_keys)]
     if unread:
         raise ValueError(f"the CLI reads no option {', '.join(unread)}")
-    return load_config("test", rest, groups=groups)
+    return load_config(name, rest, groups=groups)
 
 
 def main(argv=None) -> CoarseRunner:

@@ -10,6 +10,36 @@ from __future__ import annotations
 import torch
 
 
+def homogeneous(points: torch.Tensor) -> torch.Tensor:
+    """(..., N, D) -> (..., N, D+1) by appending ones."""
+    return torch.cat([points, torch.ones_like(points[..., :1])], dim=-1)
+
+
+def affine2d(rotation: torch.Tensor, scale=None, translation=None) -> torch.Tensor:
+    """(..., 3, 3) affine from a (..., 2, 2) rotation, an optional (...,)
+    scale of the linear block and an optional (..., 2) translation."""
+    batch_shape = rotation.shape[:-2]
+    lin = rotation if scale is None else rotation * scale[..., None, None]
+    if translation is None:
+        translation = rotation.new_zeros(batch_shape + (2,))
+    top = torch.cat([lin, translation[..., :, None]], dim=-1)  # (..., 2, 3)
+    bottom = rotation.new_tensor([0.0, 0.0, 1.0]).expand(batch_shape + (1, 3))
+    return torch.cat([top, bottom], dim=-2)
+
+
+def rotation2d(cos_sin: torch.Tensor) -> torch.Tensor:
+    """(..., 2) [cos, sin] -> (..., 2, 2) rotation matrix."""
+    c, s = cos_sin[..., 0], cos_sin[..., 1]
+    return torch.stack([torch.stack([c, -s], dim=-1), torch.stack([s, c], dim=-1)], dim=-2)
+
+
+def apply_affine(M: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
+    """Apply (..., 3, 3) homogeneous transforms to (..., N, 2) points, with
+    the perspective divide; leading axes broadcast."""
+    out = torch.einsum("...ij,...nj->...ni", M, homogeneous(points))
+    return out[..., :2] / out[..., 2:3]
+
+
 def inverse_crop_affine(M: torch.Tensor) -> torch.Tensor:
     """Inverse of an axis-aligned crop similarity. Assumes M[..., 0, 1] ==
     M[..., 1, 0] == 0 and equal diagonal scale."""

@@ -18,10 +18,12 @@ from gigapose_tpu_torch.models.vit import VIT_CONFIGS, ViT
 
 
 class AENet(nn.Module):
-    def __init__(self, model_name: str = "dinov2_vitl14", compute_dtype: Optional[str] = None):
+    def __init__(self, model_name: str = "dinov2_vitl14", compute_dtype: Optional[str] = None,
+                 remat: bool = False):
         super().__init__()
         self.model_name = model_name
-        self.vit = ViT(dataclasses.replace(VIT_CONFIGS[model_name], compute_dtype=compute_dtype))
+        self.vit = ViT(dataclasses.replace(VIT_CONFIGS[model_name], compute_dtype=compute_dtype,
+                                           remat=remat))
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         """(B, 3, H, W) preprocessed crops -> (B, P, C) L2-normalized features."""

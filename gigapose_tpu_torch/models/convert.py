@@ -115,6 +115,40 @@ def ist_flax_to_torch(variables: Mapping) -> Dict[str, torch.Tensor]:
     return out
 
 
+def train_state_flax_to_torch(ae_params: Mapping, ist_params: Mapping,
+                              ist_batch_stats: Mapping):
+    """The nets of a JAX TrainState (gigapose_tpu/training/state.py:
+    ae_params, ist_params, ist_batch_stats, as numpy trees) -> (AENet state
+    dict, ISTNet state dict with its BatchNorm statistics)."""
+    return (ae_flax_to_torch({"params": ae_params}),
+            ist_flax_to_torch({"params": ist_params, "batch_stats": ist_batch_stats}))
+
+
+def params_flax_to_torch(net: str, tree: Mapping) -> Dict[str, torch.Tensor]:
+    """A tree shaped like one net's flax params (the params, their
+    gradients or an Adam moment; net "ae" or "ist") -> the port's
+    parameters by name, in the port's layouts (BatchNorm statistics left
+    out)."""
+    if net == "ae":
+        return ae_flax_to_torch({"params": tree})
+    stats = {"backbone": _stats_like(tree["backbone"])}
+    sd = ist_flax_to_torch({"params": tree, "batch_stats": stats})
+    return {k: v for k, v in sd.items()
+            if not k.endswith(("running_mean", "running_var", "num_batches_tracked"))}
+
+
+def _stats_like(params: Mapping) -> Dict:
+    """Placeholder BatchNorm statistics for every norm layer of a params tree."""
+    out = {}
+    for name, sub in params.items():
+        if isinstance(sub, Mapping):
+            if "scale" in sub and "kernel" not in sub:
+                out[name] = {"mean": sub["scale"], "var": sub["scale"]}
+            else:
+                out[name] = _stats_like(sub)
+    return out
+
+
 def int8_params_flax_to_torch(qp: Mapping) -> Dict:
     """The JAX package's int8 serving tree (models/vit_int8.prepare_int8_params,
     as numpy arrays) -> the port's tree (models/vit_int8): same keys and

@@ -8,7 +8,11 @@
 - regressor: per correspondence, concat(query_feat, template_feat) -> two
   3-layer MLPs: scale (1-d) and cos/sin (2-d, tanh + L2 normalize).
 
-BatchNorm runs in eval mode on running statistics (eps 1e-5). Module names
+BatchNorm normalizes by its running statistics in eval mode (eps 1e-5) and,
+in training mode (`module.train()`), as flax's train-mode BatchNorm does:
+by the batch's biased variance E[x^2] - E[x]^2 in f32, with the running
+statistics moved to it at momentum 0.9 (flax's convention; torch's
+nn.BatchNorm2d would store the unbiased variance). Module names
 follow the original GigaPose ResNet / Regressor state dicts (conv1, bn1,
 layerL.B.{conv1,bn1,conv2,bn2,downsample.0,downsample.1}, layer4_outconv,
 {scale,inplane}_predictor.{0,2,4}), which models/convert.py fills.
@@ -53,10 +57,26 @@ def conv(layer: nn.Conv2d, x: torch.Tensor, dtype: Optional[torch.dtype]) -> tor
     return F.conv2d(x.to(dtype), layer.weight.to(dtype), None, layer.stride, layer.padding)
 
 
+# flax BatchNorm's momentum: running = momentum * running + (1 - momentum) * batch
+BN_MOMENTUM = 0.9
+
+
 def batch_norm(layer: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
-    """Eval-mode BatchNorm in f32 on running statistics."""
-    return F.batch_norm(x.to(torch.float32), layer.running_mean, layer.running_var,
-                        layer.weight, layer.bias, False, 0.0, layer.eps)
+    """BatchNorm in f32: on the running statistics in eval mode; in training
+    mode on the batch's statistics as flax computes them (mean and E[x^2] -
+    mean^2 over N, H, W, floored at 0), moving the running statistics to
+    them at BN_MOMENTUM."""
+    x = x.to(torch.float32)
+    if not layer.training:
+        return F.batch_norm(x, layer.running_mean, layer.running_var, layer.weight, layer.bias,
+                            False, 0.0, layer.eps)
+    mean = x.mean(dim=(0, 2, 3))
+    var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+    with torch.no_grad():
+        layer.running_mean.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * mean)
+        layer.running_var.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * var)
+    mul = torch.rsqrt(var + layer.eps) * layer.weight
+    return (x - mean[:, None, None]) * mul[:, None, None] + layer.bias[:, None, None]
 
 
 class BasicBlock(nn.Module):
@@ -168,6 +188,12 @@ class ISTNet(nn.Module):
 
     def features(self, images: torch.Tensor) -> torch.Tensor:
         return self.backbone(images)
+
+    def forward(self, src_img, tar_img, src_pts, tar_pts) -> ISTResult:
+        """End to end: the shared backbone on src, then on tar (two calls, so
+        in training mode the running statistics move twice, src first), then
+        the per-correspondence regression."""
+        return self.regress(self.backbone(src_img), self.backbone(tar_img), src_pts, tar_pts)
 
     def regress(self, src_feat, tar_feat, src_pts, tar_pts) -> ISTResult:
         """src_feat / tar_feat (B, P, C) feature grids, src_pts / tar_pts

@@ -1,0 +1,73 @@
+"""Training losses (port of gigapose_tpu/models/losses.py).
+
+All mask-aware, in fixed shapes: invalid rows are weighted out of every mean,
+which gives the mean over the valid elements that the original GigaPose
+computes after compacting them.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _unit(x: torch.Tensor) -> torch.Tensor:
+    return x / torch.linalg.vector_norm(x, dim=-1, keepdim=True).clamp(min=1e-8)
+
+
+def _masked_mean(err: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """sum(err * valid) / max(sum(valid), 1)."""
+    v = valid.to(err.dtype)
+    return (err * v).sum() / v.sum().clamp(min=1.0)
+
+
+def pairwise_cosine(a: torch.Tensor, b: torch.Tensor, normalize: bool = True) -> torch.Tensor:
+    """(N, C) x (M, C) -> (N, M) cosine similarity."""
+    if normalize:
+        a, b = _unit(a), _unit(b)
+    return a @ b.T
+
+
+def info_nce_loss(query_feat: torch.Tensor, ref_feat: torch.Tensor, valid: torch.Tensor,
+                  tau: float = 0.1) -> torch.Tensor:
+    """InfoNCE over matched pairs with in-batch negatives: row i of query
+    matches row i of ref, (N,) `valid` flags the pairs. Invalid columns are
+    masked to -1e9, so they act as no negative, and the mean runs over the
+    valid rows only."""
+    q, r = _unit(query_feat), _unit(ref_feat)
+    logits = (q @ r.T) / tau  # (N, N)
+    logits = torch.where(valid[None, :], logits, torch.full_like(logits, -1e9))
+    losses = torch.logsumexp(logits, dim=1) - torch.diagonal(logits)
+    return _masked_mean(losses, valid)
+
+
+def scale_loss(pred: torch.Tensor, gt: torch.Tensor, valid: torch.Tensor, log: bool = True,
+               loss: str = "l2") -> torch.Tensor:
+    """L2 (or L1) on the (log-)scale; the prediction is clipped at 1e-6
+    before the log."""
+    if log:
+        pred = torch.log(pred.clamp(min=1e-6))
+        gt = torch.log(gt)
+    err = (pred - gt).abs() if loss == "l1" else (pred - gt) ** 2
+    return _masked_mean(err, valid)
+
+
+def inplane_loss(pred_cossin: torch.Tensor, gt_cossin: torch.Tensor, valid: torch.Tensor,
+                 loss: str = "geodesic", normalize: bool = False,
+                 eps: float = 1e-6) -> torch.Tensor:
+    """Geodesic (arccos of the clipped cosine, clip at +-(1 - eps)) or lp
+    loss on (..., 2) [cos, sin]."""
+    if normalize:
+        pred_cossin, gt_cossin = _unit(pred_cossin), _unit(gt_cossin)
+    if loss == "geodesic":
+        cos_diff = torch.clamp((pred_cossin * gt_cossin).sum(-1), -1 + eps, 1 - eps)
+        return _masked_mean(torch.arccos(cos_diff), valid)
+    d = pred_cossin - gt_cossin
+    err = d.abs() if loss == "l1" else d**2
+    return _masked_mean(err.mean(-1), valid)
+
+
+def l2_warmup_losses(pred_scale, pred_cossin, gt_scale, gt_cossin, valid):
+    """Plain MSE on the scale and on [cos, sin] (the first warm_up_steps)."""
+    s = _masked_mean((pred_scale - gt_scale) ** 2, valid)
+    i = _masked_mean(((pred_cossin - gt_cossin) ** 2).mean(-1), valid)
+    return s, i

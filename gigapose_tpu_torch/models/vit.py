@@ -13,6 +13,13 @@ matmul (patch embed, qkv, attention, proj, MLP) runs in bf16 with weights
 stored f32 and cast at use, while LayerNorm, softmax, LayerScale and the
 residual stream stay f32. Attention is the plain softmax(QK^T)V form of the
 reference, with the same cast points.
+
+The forward runs under autograd (training): no in-place write touches a
+tensor that needs a gradient. `ViTConfig.remat=True` checkpoints each block
+while gradients are on (torch.utils.checkpoint, use_reentrant=False: the
+block's activations are recomputed in the backward pass, with the same
+gradients); the JAX package's policy names (e.g. "dots_saveable") are not
+ported and raise.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,6 +44,13 @@ class ViTConfig:
     layerscale_init: float = 1e-5
     num_register_tokens: int = 0
     compute_dtype: Optional[str] = None  # None (f32) | "bfloat16"
+    remat: bool = False  # checkpoint each block in training
+
+    def __post_init__(self):
+        if not isinstance(self.remat, bool):
+            raise NotImplementedError(
+                f"remat={self.remat!r}: remat policies are not ported (ROADMAP A12); "
+                "remat=true checkpoints each block")
 
     @property
     def matmul_dtype(self) -> Optional[torch.dtype]:
@@ -202,7 +217,10 @@ class ViT(nn.Module):
         reg = self.register_tokens if c.num_register_tokens else None
         x = add_tokens(x, self.cls_token, self.pos_embed, reg, self.pos_embed_size, gh, gw)
         for blk in self.blocks:
-            x = blk(x)
+            if c.remat and torch.is_grad_enabled():
+                x = checkpoint(blk, x, use_reentrant=False)
+            else:
+                x = blk(x)
         x_prenorm = x.to(torch.float32)
         x_norm = self.norm(x_prenorm)
         if c.num_register_tokens:

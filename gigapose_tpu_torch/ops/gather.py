@@ -33,3 +33,8 @@ def gather_patches(
     idx = torch.where(valid, y * num_patches + x, 0).clamp(0, P - 1)
     out = torch.gather(features, 1, idx[..., None].expand(B, idx.shape[1], C))
     return out, valid
+
+
+def patch_location_to_index(location: torch.Tensor, num_patches: int) -> torch.Tensor:
+    """(..., 2) [x, y] grid location -> flat patch index (...,) int32."""
+    return (location[..., 1] * num_patches + location[..., 0]).to(torch.int32)

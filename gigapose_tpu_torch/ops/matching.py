@@ -127,3 +127,14 @@ def match_templates(
         torch.zeros((), dtype=score_t2s.dtype, device=sim.device),
     )
     return select_top_k(sim_avg, idx_t2s, score_t2s, mask_all, k, num_patches)
+
+
+def match_pair(src_feat, tar_feat, src_mask, tar_mask, sim_threshold: float = 0.5,
+               patch_threshold: int = 3, num_patches: int = 16):
+    """One source / target pair per sample (the val/matching metric's
+    matcher): match_templates at N=1, k=1. -> (src_pts, tar_pts, valid,
+    score_pts), each with the pair axis dropped."""
+    r = match_templates(tar_feat, src_feat[:, None], tar_mask, src_mask[:, None], k=1,
+                        sim_threshold=sim_threshold, patch_threshold=patch_threshold,
+                        num_patches=num_patches)
+    return r.src_pts[:, 0], r.tar_pts[:, 0], r.valid[:, 0], r.score_pts[:, 0]

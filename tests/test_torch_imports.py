@@ -53,7 +53,16 @@ def test_port_imports_no_jax_pil_yaml_or_jax_package():
                      "gigapose_tpu_torch.refine", "gigapose_tpu_torch.render.templates",
                      "gigapose_tpu_torch.scripts.render_templates",
                      "gigapose_tpu_torch.scripts.eval_bop", "gigapose_tpu_torch.eval.errors",
-                     "gigapose_tpu_torch.eval.scorer"):
+                     "gigapose_tpu_torch.eval.scorer", "gigapose_tpu_torch.train",
+                     "gigapose_tpu_torch.training.state", "gigapose_tpu_torch.training.loop",
+                     "gigapose_tpu_torch.training.validate",
+                     "gigapose_tpu_torch.training.checkpoint",
+                     "gigapose_tpu_torch.dataloader.augment",
+                     "gigapose_tpu_torch.dataloader.keypoints",
+                     "gigapose_tpu_torch.dataloader.train_set",
+                     "gigapose_tpu_torch.models.losses", "gigapose_tpu_torch.lib3d.geometry",
+                     "gigapose_tpu_torch.utils.prefetch", "gigapose_tpu_torch.utils.metrics",
+                     "gigapose_tpu_torch.utils.weight"):
         assert expected in result["modules"]
 
 
@@ -62,8 +71,8 @@ import json, os, sys
 jax_dir = os.path.join(%r, "gigapose_tpu") + os.sep
 opened = []
 sys.addaudithook(lambda event, args: opened.append(str(args[0])) if event == "open" else None)
-from gigapose_tpu_torch import cli
-cli.main(sys.argv[1:])
+from gigapose_tpu_torch import %s as entry
+entry.main(sys.argv[1:])
 forbidden = %r
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in forbidden)
 print(json.dumps({"leaked": leaked,
@@ -82,7 +91,7 @@ def test_port_cli_run_reads_nothing_of_the_jax_package(tmp_path):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["GIGAPOSE_TINY"] = "1"
     out = subprocess.run(
-        [sys.executable, "-c", CLI_SCRIPT % (str(REPO), FORBIDDEN), f"machine.root_dir={root}",
+        [sys.executable, "-c", CLI_SCRIPT % (str(REPO), "cli", FORBIDDEN), f"machine.root_dir={root}",
          "test_dataset_name=tudl", "device=cpu", "data.template.num_templates=8"],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
     )
@@ -90,6 +99,28 @@ def test_port_cli_run_reads_nothing_of_the_jax_package(tmp_path):
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert result == {"leaked": [], "jax_files": [],  # the hook saw the port's own files:
                       "port_configs": ["bop.yaml", "large.yaml", "local.yaml", "test.yaml"]}
+
+
+def test_port_train_run_reads_nothing_of_the_jax_package(tmp_path):
+    """A tiny training run (GIGAPOSE_TINY, CPU, 2 steps with validation and
+    checkpoints) opens no file under gigapose_tpu/ and loads no forbidden
+    module: the loader decodes with dataloader/png.py, not PIL."""
+    from tests import synthetic_bop
+
+    root = synthetic_bop.build(str(tmp_path))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(GIGAPOSE_TINY="1", OMP_NUM_THREADS="1")  # tiny nets; the suite runs in parallel
+    out = subprocess.run(
+        [sys.executable, "-c", CLI_SCRIPT % (str(REPO), "train", FORBIDDEN),
+         f"machine.root_dir={root}", "train_dataset_name=tudl", "machine.batch_size=2",
+         "max_steps=2", "val_dataset_name=tudl", "val_split=train_pbr", "val_every=2",
+         "device=cpu"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    assert result == {"leaked": [], "jax_files": [],
+                      "port_configs": ["bop.yaml", "large.yaml", "local.yaml", "train.yaml"]}
 
 
 def test_port_sources_never_import_jax():
