@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-Drives the port's coarse path, its refinement and its training at the full
-width of `model=large` and of the JAX refiner (DINOv2
+Drives the port's coarse path, its refinement (GigaPose's and MegaPose's)
+and its training at the full width of `model=large`, of the JAX refiner and
+of the released MegaPose checkpoints (DINOv2
 ViT-L/14, the default IST backbone, bf16 compute and a bf16 template store,
 k=5, sim_threshold 0.5, patch_threshold 3, pixel_threshold 14, 162
 templates per object) with seeded random weights and numpy-synthesised
@@ -96,7 +97,7 @@ inputs, twice: with the bf16 AE (`serving_quant=off`) and with the int8 AE
    renderer at B = 8 against two batches of 4, the referee's choice with
    it, every pose moved; then the refine CLI
    (`gigapose_tpu_torch.refine.main`) on the MultiHypothesis csv of phase
-   10's last run, 40 images, min_score 0, with each renderer: one row per
+   10's last run, 20 images, min_score 0, with each renderer: one row per
    instance, each equal to one of its coarse hypotheses (the CLI's
    untrained head is the identity), rasterizer launches per batch, and a
    [refine_cli] line per run (per-image p50 / p90, images/s,
@@ -145,6 +146,24 @@ inputs, twice: with the bf16 AE (`serving_quant=off`) and with the int8 AE
    ([train_resume]); 13.5 the coarse CLI with the int8 AE on phase 10's
    first SERVE_IMAGES images from 13.2's checkpoint directory, its csvs,
    the served IST's weights and phase 10's launch formula ([train_serve]).
+14. MegaPose refinement on the card, in phase 10's dataset and on phase 11's
+   meshes, at the released checkpoints' width (WideResNet-34 width 1.0,
+   240 x 320 renders with normals, 500 points, 5 iterations, one rendered
+   view) with seeded nets (a small pose head around the identity update,
+   random BatchNorm statistics): the nets' f32 work counted by hooks and
+   their device time alone ([megapose_nets]); refine_batch at B = 8 on the
+   19,800- and 99,904-face meshes, ms per batch with its host phases
+   (fetch, render, upload, update) and the device's busy share of one
+   profiled batch ([megapose_batch]); every pose moved; the card against
+   the CPU on 2 hypotheses; classify_coarse on the 576-grid for 4
+   detections, s per detection and its phases, the card against the CPU on
+   one detection's 72-grid ([megapose_classify]); the refine CLI from
+   checkpoint.pth.tar files of these nets (the coarse one with the older
+   key names) with refiner_type=megapose on phase 10's MultiHypothesis
+   csv (20 images; its first image's rows against run_refinement with the
+   refiner itself) and with coarse_mode=so3grid on 2 images
+   ([megapose_cli]); no hand-written kernel launched ([megapose], with the
+   phase's seconds).
 
 Every kernel count is set to 0 just before a path is driven and read just
 after; launches made to compare a kernel with its plain version are not
@@ -205,6 +224,7 @@ from gigapose_tpu_torch.refiner.refiner import (
     RefinerConfig,
     RenderCompareRefiner,
     crop_prep,
+    no_tf32,
 )
 from gigapose_tpu_torch.render import rasterize as RZ
 from gigapose_tpu_torch.render import rasterizer as TR
@@ -1200,7 +1220,7 @@ CPU_BOUND = dict(R=1e-4, t_mm=0.05, score=1e-4)
 DEVICE_BOUND = dict(R=5e-4, t_mm=0.2, score=3e-4)
 # the refine CLI with its untrained (identity) head returns the coarse poses
 CLI_REFINE_TOL = dict(R=1e-4, t_rtol=1e-4)
-REFINE_CLI_IMAGES = 40
+REFINE_CLI_IMAGES = 20  # the images of phase 14.3
 # 11.3's adversarial set: faces per kind (one mesh of 20,000 faces), seen
 # at B = 8, 160 x 160 through a camera of focal length 572 px at about 0.5 m
 # (about 1,100 px a metre), one view across the camera plane
@@ -2446,6 +2466,304 @@ def phase_training(cli_root: str, dev, smi) -> dict:
     return rec
 
 
+# 14. MegaPose refinement on the card, at the released checkpoints' width
+# (WideResNet-34 width 1.0, 240 x 320 renders with normals, 500 points, 5
+# iterations, n_rendered_views 1), with seeded random nets: the pose head
+# small (HEAD_SCALE) around the identity update, BatchNorm statistics
+# random; the same nets written as checkpoint.pth.tar files in the released
+# key layout (the coarse one with the older names) for the CLI runs
+MEGAPOSE_CPU_B = 2  # hypotheses of the card-against-CPU check
+MEGAPOSE_CLASSIFY_DETS = 4  # detections through classify_coarse on the 576-grid
+MEGAPOSE_CLI_IMAGES = 20  # refine CLI, refiner_type=megapose, on phase 10's csv
+MEGAPOSE_SO3_IMAGES = 2  # refine CLI, coarse_mode=so3grid
+# the card against the CPU (refine_batch and classify_coarse): the cuDNN
+# and CPU convolutions sum in other orders (the H100 read R 2.8e-6, t 1.1e-3
+# mm, score 1.8e-6 on refine_batch), and crop cameras an ulp apart move
+# hundreds of pixels of an f32 render by a colour step (classify_coarse's
+# 72-grid read 1.1e-4; tests/test_torch_megapose.py saw up to 4e-4 between
+# the JAX package and the port); the bound of tests/test_torch_cuda_render.py
+MEGAPOSE_CPU_BOUND = dict(R=1e-3, t_mm=0.5, score=1e-3)
+IDENTITY_POSE_HEAD = (1.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 1.0)
+# the pose head's std times sqrt(features): the random WideResNet's pooled
+# features are large, and HEAD_SCALE moved every pose by 14 cm or more in 5
+# iterations on an H100; a tenth of it keeps the renders near the object
+MEGAPOSE_HEAD_SCALE = HEAD_SCALE / 10
+
+
+def perturb_megapose_(ref, seed: int) -> None:
+    """A small random pose head around the identity update and random
+    BatchNorm statistics in both nets (flax's init would leave mean 0 and
+    var 1, and the head's lecun init would throw every pose off the object)."""
+    rng = np.random.default_rng(seed)
+    rnd = lambda t, a: t.copy_(torch.from_numpy(a.astype(np.float32)))
+    with torch.no_grad():
+        w = ref.refiner_net.pose_fc.weight
+        rnd(w, rng.normal(0, MEGAPOSE_HEAD_SCALE / np.sqrt(w.shape[1]), w.shape))
+        rnd(ref.refiner_net.pose_fc.bias, np.array(IDENTITY_POSE_HEAD))
+        for net in (ref.refiner_net, ref.coarse_net):
+            for m in net.modules():
+                if isinstance(m, torch.nn.BatchNorm2d):
+                    rnd(m.running_mean, rng.normal(0, 0.1, m.num_features))
+                    rnd(m.running_var, rng.uniform(0.5, 1.5, m.num_features))
+
+
+def megapose_net_work(net, n_inputs: int, B: int, size, dev) -> float:
+    """f32 operations of one forward of `net` at (B, n_inputs, H, W): 2 per
+    multiply-add of its convolutions and linear layers (BatchNorm, ReLU,
+    pooling and the residual sums left out), counted by hooks on one
+    forward."""
+    ops = [0.0]
+
+    def hook(m, inp, out):
+        if isinstance(m, torch.nn.Conv2d):
+            ops[0] += 2.0 * out.numel() * (m.in_channels // m.groups) * m.kernel_size[0] \
+                * m.kernel_size[1]
+        elif isinstance(m, torch.nn.Linear):
+            ops[0] += 2.0 * out.numel() * m.in_features
+
+    handles = [m.register_forward_hook(hook) for m in net.modules()
+               if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]
+    with torch.inference_mode():
+        net(torch.zeros((B, n_inputs, *size), device=dev))
+    for h in handles:
+        h.remove()
+    return ops[0]
+
+
+def megapose_nets_ms(ref, B: int, dev) -> dict:
+    """Device time of the nets alone at a refine_batch's shapes (CUDA events,
+    f32, TF32 off): one refiner and one coarse forward at B, and per batch
+    n_iterations of the first and one of the second."""
+    cfg = ref.config
+    H, W = cfg.render_size
+    xr = torch.rand((B, cfg.n_inputs, H, W), device=dev)
+    xc = torch.rand((B, 3 + cfg.n_render_channels, H, W), device=dev)
+    with no_tf32(), torch.inference_mode():
+        r_ms = cuda_ms(lambda: ref.refiner_net(xr), warmup=2, iters=10)
+        c_ms = cuda_ms(lambda: ref.coarse_net(xc), warmup=2, iters=10)
+    return dict(refiner_ms=r_ms, coarse_ms=c_ms, per_batch_ms=cfg.n_iterations * r_ms + c_ms)
+
+
+def time_megapose(ref, args, tag: str, smi) -> tuple:
+    """refine_batch once to warm, then 3 times with the host phases timed
+    -> (the output, the record: whole ms per batch on the host clock, the
+    phases per batch, the device's busy share of one profiled batch)."""
+    B = len(args[2])
+    ref.refine_batch(*args)
+    ref.timing = {}
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        out = ref.refine_batch(*args)
+        times.append((time.perf_counter() - t0) * 1e3)
+    check(bool(np.isfinite(out[0]).all() and np.isfinite(out[1]).all()),
+          f"megapose {tag}: non-finite output")
+    rec = dict(batch_ms=float(np.median(times)), batch_ms_min=min(times),
+               batch_ms_max=max(times), per_hypothesis_ms=float(np.median(times)) / B,
+               **{f"{k}_ms": v / 3 * 1e3 for k, v in ref.timing.items()})
+    ref.timing = None
+    prof = device_profile(lambda: ref.refine_batch(*args))
+    rec.update(profiled_batch_ms=prof["wall_ms"], device_busy_ms=prof["busy_ms"],
+               device_busy_share=prof["busy_share"])
+    log("megapose_batch", run=tag, B=B, **{k: (f"{v:.4g}" if isinstance(v, float) else v)
+                                          for k, v in rec.items()}, card=repr(smi))
+    return out, rec
+
+
+def megapose_scene(ref, rng, B: int) -> tuple:
+    """B hypotheses of phase 11's kind: the two objects alternating at
+    random poses rendered into noise, the init 1 cm and a few degrees off
+    -> (images, K, labels, init, boxes: each object's render box)."""
+    labels = np.array([1 + i % 2 for i in range(B)])
+    gts = random_poses(rng, B)
+    init = gts.copy()
+    init[:, :3, 3] += rng.uniform(-0.01, 0.01, (B, 3))
+    a = rng.uniform(-0.08, 0.08, (B, 3))
+    for i in range(B):
+        c, s = np.cos(a[i]), np.sin(a[i])
+        rz = np.array([[c[2], -s[2], 0], [s[2], c[2], 0], [0, 0, 1]])
+        ry = np.array([[c[1], 0, s[1]], [0, 1, 0], [-s[1], 0, c[1]]])
+        init[i, :3, :3] = (rz @ ry @ init[i, :3, :3]).astype(np.float32)
+    images = scene_images(ref.meshes, labels, gts, rng)
+    boxes = np.zeros((B, 4), np.float32)
+    for i in range(B):
+        pose = gts[i].copy()
+        pose[:3, 3] /= ref.meshes.unit_to_m[int(labels[i])]
+        rgba, _ = ref.meshes.rasterizers[int(labels[i])].render(REFINE_K, pose, W, H)
+        ys, xs = np.nonzero(rgba[..., 3])
+        boxes[i] = (xs.min(), ys.min(), xs.max(), ys.max())
+    return images, np.repeat(REFINE_K[None], B, 0), labels, init, boxes
+
+
+def write_megapose_checkpoints(ref, folder: str) -> tuple:
+    """The refiner as {"state_dict": ...} with today's keys, the coarse
+    model at the top level with the older names (backbone.backbone.*,
+    backbone.head.0.*), as released checkpoint.pth.tar files -> their paths."""
+    os.makedirs(folder, exist_ok=True)
+    rpath, cpath = osp.join(folder, "refiner.pth.tar"), osp.join(folder, "coarse.pth.tar")
+    torch.save({"state_dict": {k: v.cpu() for k, v in ref.refiner_net.state_dict().items()}},
+               rpath)
+    old = {}
+    for k, v in ref.coarse_net.state_dict().items():
+        k = k.replace("backbone.", "backbone.backbone.", 1).replace("views_logits_head.",
+                                                                    "backbone.head.0.")
+        old[k] = v.cpu()
+    torch.save(old, cpath)
+    return rpath, cpath
+
+
+def megapose_cli(root: str, args: list, tag: str, smi) -> tuple:
+    """The refine CLI through main() with every count at 0 -> (the rows,
+    the timing, the record)."""
+    reset_counts()
+    RZ.rasterize.launches = 0
+    paths, timing = refine_cli.main([f"machine.root_dir={root}", "test_dataset_name=tudl",
+                                     "model=large", f"save_dir={osp.join(root, 'results', tag)}",
+                                     f"run_id={tag}"] + args)
+    torch.cuda.synchronize()
+    check(counts() == expected_counts(0) and RZ.rasterize.launches == 0,
+          f"megapose CLI {tag}: a hand-written kernel launched")
+    rows = bop_io.load_bop_csv(paths[0])
+    check(len(rows) > 0 and all(np.isfinite(r["R"]).all() and np.isfinite(r["t"]).all()
+                                and np.abs(r["R"] @ r["R"].T - np.eye(3)).max() < 1e-4
+                                for r in rows), f"megapose CLI {tag}: a row is not a pose")
+    ms = np.asarray(timing["image_s"]) * 1e3
+    n_key = "hypotheses" if "hypotheses" in timing else "detections"
+    rec = dict(images=timing["images"], rows=len(rows), image_ms_p50=float(np.percentile(ms, 50)),
+               image_ms_p90=float(np.percentile(ms, 90)),
+               images_per_s=timing["images"] / timing["run_s"], run_s=timing["run_s"],
+               **{n_key: timing[n_key], f"{n_key}_per_s": timing[n_key] / timing["run_s"]})
+    log("megapose_cli", run=tag, **{k: (f"{v:.4g}" if isinstance(v, float) else v)
+                                    for k, v in rec.items()}, card=repr(smi))
+    return rows, timing, rec
+
+
+def phase_megapose(root: str, init_csv: str, dev, smi) -> dict:
+    """14. MegaPose refinement on the card, in phase 10's dataset and phase
+    11's meshes (19,800 and 99,904 faces): 14.1 refine_batch of REFINE_B at
+    full width on both mesh sets (ms per batch, its host phases fetch /
+    render / upload / update, the nets' device time alone, the device's
+    busy share), every pose moved; the card against the CPU on
+    MEGAPOSE_CPU_B hypotheses; 14.2 classify_coarse on the 576-grid for
+    MEGAPOSE_CLASSIFY_DETS detections (s per detection, the same phases),
+    its first detection's scores on the 72-grid on the card against the
+    CPU; 14.3 the
+    refine CLI with refiner_type=megapose on phase 10's MultiHypothesis csv
+    (MEGAPOSE_CLI_IMAGES images, min_score 0) from checkpoints of 14.1's
+    nets, its first image's rows against run_refinement with 14.1's
+    refiner; 14.4 the refine CLI with coarse_mode=so3grid on
+    MEGAPOSE_SO3_IMAGES images. No hand-written kernel launches: the nets
+    are cuDNN's, the renders the host's."""
+    from gigapose_tpu_torch.refiner.megapose_refiner import MegaposeRefiner, MegaposeRefinerConfig
+    from gigapose_tpu_torch.refiner.runner import run_refinement
+
+    t_phase = time.perf_counter()
+    reset_counts()
+    RZ.rasterize.launches = 0
+    sets = {"dataset": refine_cli.mesh_paths_of(osp.join(root, "datasets", "tudl", "models")),
+            "large": refine_cli.mesh_paths_of(osp.join(root, "large"))}
+    cfg = MegaposeRefinerConfig()
+    ref = MegaposeRefiner.create(sets["dataset"], seed=SEED, config=cfg, device=dev)
+    perturb_megapose_(ref, SEED + 50)
+    rng = np.random.default_rng(SEED + 51)
+    images, Ks, labels, init, boxes = megapose_scene(ref, rng, REFINE_B)
+    args = (images, Ks, labels, init)
+    H_, W_ = cfg.render_size
+    work = dict(refiner=megapose_net_work(ref.refiner_net, cfg.n_inputs, 1, cfg.render_size, dev),
+                coarse=megapose_net_work(ref.coarse_net, 3 + cfg.n_render_channels, 1,
+                                         cfg.render_size, dev))
+    nets = megapose_nets_ms(ref, REFINE_B, dev)
+    batch_ops = REFINE_B * (cfg.n_iterations * work["refiner"] + work["coarse"])
+    rec = dict(work_gflop=dict(refiner=work["refiner"] / 1e9, coarse=work["coarse"] / 1e9),
+               nets=nets, nets_bound_ms=bound(batch_ops, "f32", 0.0)["bound_ms"])
+    log("megapose_nets", B=REFINE_B, size=f"{H_}x{W_}", refiner_gflop=f"{work['refiner'] / 1e9:.4g}",
+        coarse_gflop=f"{work['coarse'] / 1e9:.4g}", **{k: f"{v:.4g}" for k, v in nets.items()},
+        per_batch_bound_ms=f"{rec['nets_bound_ms']:.4g}", card=repr(smi))
+    out, rec["dataset"] = time_megapose(ref, args, "dataset", smi)
+    large = dataclasses.replace(ref, meshes=MeshStore(sets["large"], cfg.n_sample_points))
+    _, rec["large"] = time_megapose(large, args, "large", smi)
+    large.meshes.close()
+    moved = [pose_gap(out[0][i:i + 1], init[i:i + 1]) for i in range(REFINE_B)]
+    rec["moved_min"] = dict(R=min(m["R"] for m in moved), t_mm=min(m["t_mm"] for m in moved))
+    cpu = dataclasses.replace(ref, refiner_net=copy.deepcopy(ref.refiner_net).cpu(),
+                              coarse_net=copy.deepcopy(ref.coarse_net).cpu(),
+                              device=torch.device("cpu"))
+    t0 = time.perf_counter()
+    cpu_out = cpu.refine_batch(*(x[:MEGAPOSE_CPU_B] for x in args))
+    rec["cpu_s"] = time.perf_counter() - t0
+    rec["cpu_gap"] = result_gap(tuple(x[:MEGAPOSE_CPU_B] for x in out), cpu_out)
+    for q in ("R", "t_mm", "score"):
+        check(rec["cpu_gap"][q] <= MEGAPOSE_CPU_BOUND[q],
+              f"megapose card against CPU: {rec['cpu_gap']} > {MEGAPOSE_CPU_BOUND}")
+    for q in ("R", "t_mm"):
+        check(rec["moved_min"][q] > MEGAPOSE_CPU_BOUND[q],
+              f"megapose: a pose moved {rec['moved_min']}, not more than {MEGAPOSE_CPU_BOUND}")
+    log("megapose_parity", cpu_B=MEGAPOSE_CPU_B, cpu_s=f"{rec['cpu_s']:.2f}",
+        **{f"cpu_{q}": f"{v:.4g}" for q, v in rec["cpu_gap"].items()},
+        **{f"moved_min_{q}": f"{v:.4g}" for q, v in rec["moved_min"].items()})
+
+    # 14.2 the SO(3)-grid classifier
+    n = MEGAPOSE_CLASSIFY_DETS
+    cls_args = tuple(x[:n] for x in args[:3]) + (boxes[:n],)
+    # warm, and the card against the CPU on the first detection's 72-grid
+    # (the CPU in chunks of 8: a sample's score does not depend on its chunk)
+    _, card72 = ref.classify_coarse(*(x[:1] for x in cls_args), grid_size=72)
+    t0 = time.perf_counter()
+    _, cpu72 = cpu.classify_coarse(*(x[:1] for x in cls_args), chunk=8, grid_size=72)
+    cpu_cls_s = time.perf_counter() - t0
+    cls_gap = float(np.abs(cpu72 - card72).max())
+    check(cls_gap <= MEGAPOSE_CPU_BOUND["score"],
+          f"classify_coarse card against CPU: {cls_gap} > {MEGAPOSE_CPU_BOUND['score']}")
+    ref.timing = {}
+    t0 = time.perf_counter()
+    best, scores = ref.classify_coarse(*cls_args, grid_size=576)
+    cls_s = time.perf_counter() - t0
+    cls_phases = {f"{k}_s_per_det": v / n for k, v in ref.timing.items()}
+    ref.timing = None
+    check(scores.shape == (n, 576) and bool(np.isfinite(scores).all())
+          and bool(np.isfinite(best).all()) and bool((best[:, 0, 2, 3] > 0.1).all()),
+          "classify_coarse: scores or poses not finite, or an object behind the camera")
+    grid_ops = 576 * work["coarse"]
+    rec["classify"] = dict(detections=n, s_per_det=cls_s / n, **cls_phases, cpu_gap_72=cls_gap,
+                           cpu_s_72=cpu_cls_s, tflop_per_det=grid_ops / 1e12,
+                           bound_s_per_det=bound(grid_ops, "f32", 0.0)["bound_ms"] / 1e3,
+                           score_spread=float(scores.max() - scores.min()))
+    log("megapose_classify", grid=576, **{k: (f"{v:.4g}" if isinstance(v, float) else v)
+                                          for k, v in rec["classify"].items()}, card=repr(smi))
+
+    # 14.3 / 14.4 the refine CLI from checkpoints of these nets
+    rpath, cpath = write_megapose_checkpoints(ref, osp.join(root, "megapose_ckpt"))
+    ckpts = [f"megapose_refiner_ckpt={rpath}", f"megapose_coarse_ckpt={cpath}"]
+    rows, timing, rec["cli"] = megapose_cli(
+        root, ckpts + ["refiner_type=megapose", f"init_loc_path={init_csv}", "min_score=0",
+                       f"max_images={MEGAPOSE_CLI_IMAGES}"], "megapose", smi)
+    check(timing["images"] == MEGAPOSE_CLI_IMAGES, "megapose CLI: images")
+    direct = run_refinement(ref, DirSceneSource(osp.join(root, "datasets", "tudl", "test"),
+                                                load_depth=False, load_masks=False),
+                            init_csv, save_dir=osp.join(root, "results", "megapose_direct"),
+                            dataset_name="tudl", run_id="direct", max_images=1, min_score=0)
+    first = bop_io.load_bop_csv(direct[0])
+    cli_first = [r for r in rows if (r["scene_id"], r["im_id"]) ==
+                 (first[0]["scene_id"], first[0]["im_id"])]
+    cli_gap = max(max(float(np.abs(a["R"] - b["R"]).max()), float(np.abs(a["t"] - b["t"]).max()),
+                      abs(a["score"] - b["score"])) for a, b in zip(first, cli_first))
+    check(len(first) == len(cli_first) and cli_gap <= 1e-5,
+          f"megapose CLI from checkpoints against the refiner itself: {cli_gap}")
+    rec["cli"]["gap_to_direct"] = cli_gap
+    _, timing, rec["so3grid"] = megapose_cli(
+        root, ckpts + ["coarse_mode=so3grid", "so3_grid_size=576",
+                       f"max_images={MEGAPOSE_SO3_IMAGES}"], "megapose_so3", smi)
+    check(timing["images"] == MEGAPOSE_SO3_IMAGES, "so3grid CLI: images")
+    ref.meshes.close()
+    check(counts() == expected_counts(0) and RZ.rasterize.launches == 0,
+          "the MegaPose phase launched a hand-written kernel")
+    rec["seconds"] = time.perf_counter() - t_phase
+    log("megapose", seconds=f"{rec['seconds']:.1f}", launches=repr(counts()).replace(" ", ""),
+        raster_launches=RZ.rasterize.launches)
+    torch.cuda.empty_cache()
+    return rec
+
+
 def raster_record(rec: dict) -> dict:
     """The rasterizer's entry of the kernels line, at the dataset's meshes:
     launches in phase 11.4's device runs on them (3 batches), launches_cli
@@ -2655,11 +2973,13 @@ def main() -> int:
     # 10. the CLI on the card: a BOP dataset on disk through cli.main; 11.
     # refinement on the card, in that dataset;
     # 12. templates from CAD models and BOP scoring, beside that dataset;
-    # 13. training on the card, in 12's dataset, served on 10's
+    # 13. training on the card, in 12's dataset, served on 10's;
+    # 14. MegaPose refinement on the card, in 10's dataset and 11's meshes
     def after_cli(root, csv):
         rec = phase_refinement(root, csv, dev, smi)
         rec["templates"] = phase_templates(root, dev, smi)
         rec["training"] = phase_training(root, dev, smi)
+        rec["megapose"] = phase_megapose(root, csv, dev, smi)
         return rec
 
     cli_rec = phase_cli(templates, dev, smi, then=after_cli)

@@ -14,6 +14,7 @@ lightning checkpoints directly.
 
 from __future__ import annotations
 
+import re
 from typing import Dict, Mapping
 
 import numpy as np
@@ -203,12 +204,11 @@ def gigapose_ckpt_to_torch(path: str):
     return out["ae"], out["ist"]
 
 
-def refiner_flax_to_torch(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """RefinerNet or CoarseScorerNet variables {"params", "batch_stats"}
-    (gigapose_tpu/refiner/network.py) -> the port's state dict
-    (refiner/network.py, whose module names are the flax ones): conv kernels
-    HWIO -> OIHW, dense kernels (in, out) -> (out, in), BatchNorm scale /
-    bias / mean / var. Load it with load_state_dict(strict=True)."""
+def _flax_tree_to_torch(variables: Mapping, rename=lambda name: name) -> Dict[str, torch.Tensor]:
+    """A flax tree of convolutions, dense layers and BatchNorms
+    {"params", "batch_stats"} -> a state dict: each module's path joined
+    by dots, every name through `rename`; conv kernels HWIO -> OIHW, dense
+    kernels (in, out) -> (out, in), BatchNorm scale / bias / mean / var."""
     out: Dict[str, torch.Tensor] = {}
     stats = variables.get("batch_stats", {})
 
@@ -219,7 +219,35 @@ def refiner_flax_to_torch(variables: Mapping) -> Dict[str, torch.Tensor]:
             _bn(p, s, prefix, out)
         else:
             for name, sub in p.items():
-                walk(sub, s.get(name, {}), f"{prefix}{name}.")
+                walk(sub, s.get(name, {}), f"{prefix}{rename(name)}.")
 
     walk(variables["params"], stats, "")
     return out
+
+
+def refiner_flax_to_torch(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """RefinerNet or CoarseScorerNet variables {"params", "batch_stats"}
+    (gigapose_tpu/refiner/network.py) -> the port's state dict
+    (refiner/network.py, whose module names are the flax ones). Load it
+    with load_state_dict(strict=True)."""
+    return _flax_tree_to_torch(variables)
+
+
+_MEGAPOSE_NAMES = {"down_conv": "downsample.0", "down_bn": "downsample.1"}
+
+
+def megapose_flax_to_torch(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """Variables {"params", "batch_stats"} of the JAX package's
+    MegaposePoseHeadNet, MegaposeWideResNet or VanillaResNet34
+    (gigapose_tpu/refiner/megapose_net.py) -> the state dict of the port's
+    twin (refiner/megapose_net.py), whose keys are the reference torch
+    modules' own: block `layer3_0` becomes `layer3.0`, torchvision's
+    `down_conv` / `down_bn` become `downsample.0` / `.1`. The inverse of
+    the JAX converters megapose_pose_model_to_flax,
+    megapose_backbone_to_flax and vanilla_resnet34_to_flax. Load it with
+    load_state_dict(strict=True)."""
+    def rename(name: str) -> str:
+        block = re.fullmatch(r"layer(\d+)_(\d+)", name)
+        return f"layer{block[1]}.{block[2]}" if block else _MEGAPOSE_NAMES.get(name, name)
+
+    return _flax_tree_to_torch(variables, rename)

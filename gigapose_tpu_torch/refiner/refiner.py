@@ -80,18 +80,32 @@ def no_tf32():
         matmul.allow_tf32 = old
 
 
+def crop_boxes_K(K, TCO, points, im_size, render_size, lamb):
+    """The deepim crop box around the object's projection at TCO and the
+    crop camera's intrinsics -> (boxes (B, 4), K_crop (B, 3, 3))."""
+    boxes_rend = R.boxes_from_uv(R.project_points_robust(points, K, TCO))
+    center_uv = R.project_points_robust(points.new_zeros((TCO.shape[0], 1, 3)), K, TCO)
+    boxes_crop = R.deepim_boxes(center_uv, boxes_rend, boxes_rend, im_size=im_size, lamb=lamb)
+    return boxes_crop, R.get_K_crop_resize(K, boxes_crop, im_size, render_size)
+
+
 def crop_prep(images, K, TCO, points, render_size, lamb):
     """The per-iteration crop math (deepim crop around the projected object,
     ref: pose_rigid.py:221-260) -> (TCO_n, tCR, K_crop, crops)."""
     TCO_n = R.normalize_T(TCO)
     tCR = TCO_n[:, :3, 3]
-    boxes_rend = R.boxes_from_uv(R.project_points_robust(points, K, TCO_n))
-    center_uv = R.project_points_robust(points.new_zeros((TCO.shape[0], 1, 3)), K, TCO_n)
     im_size = tuple(images.shape[-2:])
-    boxes_crop = R.deepim_boxes(center_uv, boxes_rend, boxes_rend, im_size=im_size, lamb=lamb)
-    K_crop = R.get_K_crop_resize(K, boxes_crop, im_size, render_size)
+    boxes_crop, K_crop = crop_boxes_K(K, TCO_n, points, im_size, render_size, lamb)
     crops = R.crop_images_to_boxes(images, boxes_crop, render_size, sampling_ratio=4)
     return TCO_n, tCR, K_crop, crops
+
+
+def pose_update(net, crops, renders, TCO, K_crop, tCR):
+    """One refiner step: the net's 9-d output on (crops, renders) as an
+    ortho6d rotation and (vx, vy, vz), applied about the reference point."""
+    out = net(torch.cat([crops, renders], dim=1))
+    dR = R.rotation_from_ortho6d(out[:, :6])
+    return R.pose_update_with_reference_point(TCO, K_crop, out[:, 6:9], dR, tCR)
 
 
 class MeshStore:
@@ -121,20 +135,33 @@ class MeshStore:
         return np.tile(verts, (reps, 1))[:n]
 
     def render_batch(self, labels: np.ndarray, TCO: np.ndarray, K: np.ndarray,
-                     size: Tuple[int, int], out_dtype=np.float32) -> np.ndarray:
-        """(B,) labels, (B, 4, 4) poses in metres, (B, 3, 3) K -> (B, 3, H, W)
+                     size: Tuple[int, int], out_dtype=np.float32,
+                     render_normals: bool = False) -> np.ndarray:
+        """(B,) labels, (B, 4, 4) poses in metres, (B, 3, 3) K -> (B, C, H, W)
         renders: f32 in [0, 1], or with out_dtype=np.uint8 the raw bytes
-        (a quarter of the upload; the device converts them exactly)."""
+        (a quarter of the upload; the device converts them exactly). C = 3,
+        or 6 with render_normals (f32 only): RGB and the camera-space normal
+        encoded as frac(nx, nz, -ny) on the object, 0 elsewhere (the
+        reference's eye-space normal, wrapped as a repeating 3D texture in
+        Panda3D's z-up frame). Each pose's translation is divided by the
+        mesh unit in the pose's own dtype."""
         H, W = size
-        out = np.zeros((len(labels), 3, H, W), out_dtype)
+        if render_normals and out_dtype != np.float32:
+            raise ValueError("normals are rendered as f32 only")
+        out = np.zeros((len(labels), 6 if render_normals else 3, H, W), out_dtype)
 
         def render_one(i: int):
             label = int(labels[i])
             pose = TCO[i].copy()
             pose[:3, 3] /= self.unit_to_m[label]  # metres -> mesh units
-            rgba, _ = self.rasterizers[label].render(K[i], pose, W, H)
+            rgba, _, nrm = self.rasterizers[label].render_full(K[i], pose, W, H,
+                                                               normals=render_normals)
+            if render_normals:
+                enc = np.stack([nrm[..., 0], nrm[..., 2], -nrm[..., 1]], axis=-1)
+                enc = np.where((rgba[..., 3] > 0)[..., None], enc - np.floor(enc), 0.0)
+                out[i, 3:] = enc.transpose(2, 0, 1)
             rgb = rgba[..., :3].transpose(2, 0, 1)
-            out[i] = rgb if out_dtype == np.uint8 else rgb.astype(np.float32) / 255.0
+            out[i, :3] = rgb if out_dtype == np.uint8 else rgb.astype(np.float32) / 255.0
 
         if self._pool is not None and len(labels) > 1:
             list(self._pool.map(render_one, range(len(labels))))
@@ -142,6 +169,18 @@ class MeshStore:
             for i in range(len(labels)):
                 render_one(i)
         return out
+
+    def render_multiview_batch(self, labels: np.ndarray, TCV_O: np.ndarray, KV: np.ndarray,
+                               size: Tuple[int, int], render_normals: bool = False
+                               ) -> np.ndarray:
+        """(B,) labels, (B, V, 4, 4) poses, (B, V, 3, 3) K -> (B, V * C, H,
+        W) f32: each hypothesis rendered from V viewpoints, the views'
+        channels concatenated (the layout the MegaPose refiner's backbone
+        reads)."""
+        B, V = TCV_O.shape[:2]
+        flat = self.render_batch(np.repeat(labels, V), TCV_O.reshape(B * V, 4, 4),
+                                 KV.reshape(B * V, 3, 3), size, render_normals=render_normals)
+        return flat.reshape(B, V * flat.shape[1], *size)
 
     def close(self) -> None:
         if self._pool is not None:
@@ -186,9 +225,7 @@ class RenderCompareRefiner:
         return TCO_n, tCR, K_crop, crops, pack
 
     def _update_step(self, crops, renders, TCO, K_crop, tCR):
-        out = self.refiner_net(torch.cat([crops, renders], dim=1))
-        dR = R.rotation_from_ortho6d(out[:, :6])
-        return R.pose_update_with_reference_point(TCO, K_crop, out[:, 6:9], dR, tCR)
+        return pose_update(self.refiner_net, crops, renders, TCO, K_crop, tCR)
 
     def _score(self, crops, renders):
         return torch.sigmoid(self.scorer_net(torch.cat([crops, renders], dim=1)))

@@ -1,11 +1,17 @@
-"""Refinement runner: coarse csv -> refined BOP csv (port of
-gigapose_tpu/refiner/runner.py:28-174, one process).
+"""Refinement runners -> refined BOP csv (port of gigapose_tpu/refiner/runner.py,
+one process).
 
-Per image: the coarse hypotheses (top-1 csv or the top-k MultiHypothesis
-csv), refined in chunks of `chunk_size` through RenderCompareRefiner, the
-best hypothesis kept per instance with score = (coarse score + pose score)
-/ 2 (the reference's refiner.py:124-131), one npz per image, merged into the
-refined csv.
+- run_refinement: per image, the coarse hypotheses (top-1 csv or the top-k
+  MultiHypothesis csv), refined in chunks of `chunk_size` by any refiner
+  with refine_batch(images, K, labels, TCO) -> (TCO, scores)
+  (RenderCompareRefiner or MegaposeRefiner), the best hypothesis kept per
+  instance with score = (coarse score + pose score) / 2 (the reference's
+  refiner.py:124-131);
+- run_so3_coarse_refinement: from CNOS detections alone, MegaposeRefiner's
+  SO(3)-grid classification (the best grid rotation per detection), then
+  its refinement; score = the pose score.
+
+One npz per image, merged into the refined csv.
 """
 
 from __future__ import annotations
@@ -17,7 +23,6 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from gigapose_tpu_torch.dataloader import bop_io
-from gigapose_tpu_torch.refiner.refiner import RenderCompareRefiner
 from gigapose_tpu_torch.utils.logging import get_logger
 from gigapose_tpu_torch.utils.timer import Timer
 
@@ -54,7 +59,41 @@ def load_hypotheses(init_loc_path: str, min_score: float) -> Dict[str, List[Dict
     return per_image
 
 
-def run_refinement(refiner: RenderCompareRefiner, scene_source, init_loc_path: str,
+def _clear_npz(pred_dir: str) -> None:
+    """Stale batches of earlier runs go: the merge globs *.npz."""
+    os.makedirs(pred_dir, exist_ok=True)
+    for f in os.listdir(pred_dir):
+        if f.endswith(".npz"):
+            os.remove(osp.join(pred_dir, f))
+
+
+def _observations(scene_source, keys):
+    """The observations of `keys` by random access where the source has an
+    index holding every key (only those images are decoded), else the whole
+    source in order."""
+    index = getattr(scene_source, "key_index", None)
+    if hasattr(scene_source, "lookup") and index and all(k in index for k in keys):
+        logger.info(f"Random-access refinement over {len(keys)} keys")
+        for k in sorted(keys):
+            obs = scene_source.lookup(k)
+            if obs is not None:
+                yield obs
+        return
+    yield from scene_source
+
+
+def _refine_chunks(refiner, images, K, labels, TCO, chunk_size: int):
+    """refine_batch over chunks of `chunk_size` hypotheses -> (TCO, scores)."""
+    refined = np.zeros_like(TCO)
+    scores = np.zeros(len(labels), np.float32)
+    for s in range(0, len(labels), chunk_size):
+        e = min(s + chunk_size, len(labels))
+        refined[s:e], scores[s:e] = refiner.refine_batch(images[s:e], K[s:e], labels[s:e],
+                                                         TCO[s:e])
+    return refined, scores
+
+
+def run_refinement(refiner, scene_source, init_loc_path: str,
                    save_dir: str, dataset_name: str, model_name: str = "large", run_id="0",
                    chunk_size: int = 8, max_images: Optional[int] = None,
                    min_score: float = 0.25, timing: Optional[Dict] = None) -> List[str]:
@@ -72,28 +111,10 @@ def run_refinement(refiner: RenderCompareRefiner, scene_source, init_loc_path: s
                          f"(meshes of objects {sorted(meshes)})")
 
     pred_dir = osp.join(save_dir, "predictions_refined")
-    os.makedirs(pred_dir, exist_ok=True)
-    for f in os.listdir(pred_dir):  # stale batches of earlier runs: the merge globs *.npz
-        if f.endswith(".npz"):
-            os.remove(osp.join(pred_dir, f))
-
-    def observations():
-        """Random access by key where the source has an index holding every
-        key (only images with hypotheses are decoded), else in order."""
-        keys = sorted(locs_per_image)
-        index = getattr(scene_source, "key_index", None)
-        if hasattr(scene_source, "lookup") and index and all(k in index for k in keys):
-            logger.info(f"Random-access refinement over {len(keys)} keys")
-            for k in keys:
-                obs = scene_source.lookup(k)
-                if obs is not None:
-                    yield obs
-            return
-        yield from scene_source
-
+    _clear_npz(pred_dir)
     stats = dict(images=0, hypotheses=0, image_s=[])
     timer, run_timer = Timer(), Timer().tic()
-    for batch_id, obs in enumerate(observations()):
+    for batch_id, obs in enumerate(_observations(scene_source, locs_per_image)):
         rows = locs_per_image.get(obs.key, [])
         if not rows:
             continue
@@ -109,12 +130,7 @@ def run_refinement(refiner: RenderCompareRefiner, scene_source, init_loc_path: s
         for i, r in enumerate(rows):
             TCO[i, :3, :3] = r["R"]
             TCO[i, :3, 3] = np.asarray(r["t"]).reshape(3) / 1000.0  # mm -> m
-        refined = np.zeros_like(TCO)
-        pose_scores = np.zeros(B, np.float32)
-        for s in range(0, B, chunk_size):
-            e = min(s + chunk_size, B)
-            refined[s:e], pose_scores[s:e] = refiner.refine_batch(
-                images[s:e], K[s:e], labels[s:e], TCO[s:e])
+        refined, pose_scores = _refine_chunks(refiner, images, K, labels, TCO, chunk_size)
         elapsed = timer.toc()  # refine_batch returns host arrays: the work is done
         stats["images"] += 1
         stats["hypotheses"] += B
@@ -147,5 +163,68 @@ def run_refinement(refiner: RenderCompareRefiner, scene_source, init_loc_path: s
     if timing is not None:
         timing.update(stats)
     logger.info(f"Refined {stats['images']} images")
+    return bop_io.merge_batched_predictions(pred_dir, dataset_name, model_name, run_id,
+                                            is_refined=True)
+
+
+def run_so3_coarse_refinement(refiner, scene_source, root_dir: str, save_dir: str,
+                              dataset_name: str, model_name: str = "large", run_id="0",
+                              grid_size: int = 576, chunk_size: int = 8,
+                              max_images: Optional[int] = None, max_dets_per_image: int = 16,
+                              timing: Optional[Dict] = None) -> List[str]:
+    """The detections-only pipeline (the reference's forward_coarse_model
+    path): per image its CNOS detections (the `max_dets_per_image` best),
+    every rotation of the `grid_size`-point SO(3) grid scored per detection
+    by `refiner.classify_coarse` (a MegaposeRefiner), the best one refined;
+    one row per detection with the pose score. `timing`, when given,
+    receives the images, the detections, the per-image seconds and the
+    run's seconds."""
+    _, dets_per_image = bop_io.load_cnos_detections(root_dir, dataset_name,
+                                                    test_setting="detection")
+    pred_dir = osp.join(save_dir, "predictions_refined")
+    _clear_npz(pred_dir)
+    stats = dict(images=0, detections=0, image_s=[])
+    timer, run_timer = Timer(), Timer().tic()
+    for batch_id, obs in enumerate(_observations(scene_source, dets_per_image)):
+        dets = dets_per_image.get(obs.key, [])
+        if not dets:
+            continue
+        if max_images is not None and stats["images"] >= max_images:
+            break
+        dets = sorted(dets, key=lambda d: -d.get("score", 0.0))[:max_dets_per_image]
+        timer.tic()
+        img = obs.rgb.astype(np.float32).transpose(2, 0, 1)[None] / 255.0
+        B = len(dets)
+        images = np.repeat(img, B, axis=0)
+        K = np.tile(obs.K[None], (B, 1, 1)).astype(np.float32)
+        labels = np.array([int(d.get("category_id", d.get("obj_id"))) for d in dets], np.int32)
+        boxes = np.zeros((B, 4), np.float32)  # COCO xywh -> xyxy
+        for i, d in enumerate(dets):
+            x, y, w, h = d["bbox"]
+            boxes[i] = (x, y, x + w, y + h)
+        TCO_init, _ = refiner.classify_coarse(images, K, labels, boxes, top_k=1,
+                                              grid_size=grid_size)
+        refined, pose_scores = _refine_chunks(refiner, images, K, labels, TCO_init[:, 0],
+                                              chunk_size)
+        elapsed = timer.toc()
+        stats["images"] += 1
+        stats["detections"] += B
+        stats["image_s"].append(elapsed)
+        poses_mm = refined.copy()
+        poses_mm[:, :3, 3] *= 1000.0
+        np.savez(
+            osp.join(pred_dir, f"{batch_id:06d}.npz"),
+            scene_id=np.full(B, obs.scene_id, np.int32),
+            im_id=np.full(B, obs.im_id, np.int32),
+            object_id=labels,
+            poses=poses_mm,
+            scores=pose_scores,
+            time=np.full(B, float(dets[0].get("time", 0.0))),
+            refinement_time=np.full(B, elapsed),
+        )
+    stats["run_s"] = run_timer.toc()
+    if timing is not None:
+        timing.update(stats)
+    logger.info(f"SO(3)-grid ({grid_size}) classified and refined {stats['images']} images")
     return bop_io.merge_batched_predictions(pred_dir, dataset_name, model_name, run_id,
                                             is_refined=True)

@@ -21,7 +21,8 @@ of the cut); the device template renderer writes, on the card, the files
 that its plain version writes on the CPU. The refine loop on the card
 against the CPU: poses and scores within 1e-3, from cuDNN's convolutions summing in another order than
 the CPU's (1e-6 relative), which a uint8 render now and then turns into one
-step at a pixel.
+step at a pixel; the same for the MegaPose refiner (host renders with
+normals), and its SO(3)-grid scores.
 """
 
 import numpy as np
@@ -31,6 +32,7 @@ import torch
 from gigapose_tpu_torch.dataloader.png import decode_png
 from gigapose_tpu_torch.render import rasterize as RZ
 from gigapose_tpu_torch.render import templates as TP
+from gigapose_tpu_torch.refiner.megapose_refiner import MegaposeRefiner, MegaposeRefinerConfig
 from gigapose_tpu_torch.refiner.refiner import RefinerConfig, RenderCompareRefiner
 from torch_meshes import cube, sphere, views
 
@@ -141,6 +143,47 @@ def test_refine_batch_device_on_the_card_matches_the_cpu(dev, tmp_path):
     want_T, want_s = cpu.refine_batch(*args)
     np.testing.assert_allclose(got_T, want_T, atol=1e-3, rtol=0)
     np.testing.assert_allclose(got_s, want_s, atol=1e-3, rtol=0)
+    card.meshes.close()
+    cpu.meshes.close()
+
+
+@pytest.mark.parametrize("n_views", [1, 4])
+def test_megapose_refiner_on_the_card_matches_the_cpu(dev, tmp_path, n_views):
+    """The MegaPose refiner (WideResNet-34 width 0.125, 60x80, host renders
+    with normals) on the card against the same nets on the CPU: refine_batch
+    over 2 iterations at n_rendered_views 1 and 4, and classify_coarse on
+    the 72-grid, within 1e-3."""
+    mesh = str(tmp_path / "cube.ply")
+    _write_cube_ply(mesh)
+    cfg = MegaposeRefinerConfig(n_iterations=2, render_size=(60, 80), n_sample_points=8,
+                                n_rendered_views=n_views)
+    card = MegaposeRefiner.create({1: mesh}, config=cfg, width=0.125, device=dev)
+    cpu = MegaposeRefiner.create({1: mesh}, config=cfg, width=0.125, device="cpu")
+    with torch.no_grad():  # a pose head near the identity update
+        card.refiner_net.pose_fc.weight.mul_(0.05)
+        card.refiner_net.pose_fc.bias.copy_(torch.tensor([1.0, 0, 0, 0, 1, 0, 0, 0, 1]))
+    cpu.refiner_net.load_state_dict(card.refiner_net.state_dict())
+    cpu.coarse_net.load_state_dict(card.coarse_net.state_dict())
+    B = 3
+    rng = np.random.default_rng(1)
+    gt = np.eye(4, dtype=np.float32)
+    gt[:3, 3] = [0.02, -0.01, 0.5]
+    Kf = np.array([[572.4, 0, 320], [0, 573.5, 240], [0, 0, 1.0]], np.float32)
+    rgba, _ = card.meshes.rasterizers[1].render(Kf, gt, 640, 480)
+    img = np.repeat(rgba[..., :3].transpose(2, 0, 1).astype(np.float32)[None] / 255.0, B, 0)
+    init = np.repeat(gt[None], B, 0)
+    init[:, :3, 3] += rng.uniform(-0.02, 0.02, (B, 3))
+    args = (img, np.repeat(Kf[None], B, 0), np.ones(B, np.int64), init)
+    got_T, got_s = card.refine_batch(*args)
+    want_T, want_s = cpu.refine_batch(*args)
+    np.testing.assert_allclose(got_T, want_T, atol=1e-3, rtol=0)
+    np.testing.assert_allclose(got_s, want_s, atol=1e-3, rtol=0)
+    ys, xs = np.nonzero(rgba[..., 3])
+    box = np.array([[xs.min(), ys.min(), xs.max(), ys.max()]], np.float32)
+    one = [a[:1] for a in args[:3]]
+    got = card.classify_coarse(*one, box, grid_size=72)
+    want = cpu.classify_coarse(*one, box, grid_size=72)
+    np.testing.assert_allclose(got[1], want[1], atol=1e-3, rtol=0)
     card.meshes.close()
     cpu.meshes.close()
 

@@ -62,7 +62,10 @@ def test_port_imports_no_jax_pil_yaml_or_jax_package():
                      "gigapose_tpu_torch.dataloader.train_set",
                      "gigapose_tpu_torch.models.losses", "gigapose_tpu_torch.lib3d.geometry",
                      "gigapose_tpu_torch.utils.prefetch", "gigapose_tpu_torch.utils.metrics",
-                     "gigapose_tpu_torch.utils.weight"):
+                     "gigapose_tpu_torch.utils.weight", "gigapose_tpu_torch.refiner.megapose_net",
+                     "gigapose_tpu_torch.refiner.megapose_refiner",
+                     "gigapose_tpu_torch.refiner.multiview", "gigapose_tpu_torch.refiner.so3_grid",
+                     "gigapose_tpu_torch.refiner.depth_refiner"):
         assert expected in result["modules"]
 
 
@@ -121,6 +124,29 @@ def test_port_train_run_reads_nothing_of_the_jax_package(tmp_path):
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert result == {"leaked": [], "jax_files": [],
                       "port_configs": ["bop.yaml", "large.yaml", "local.yaml", "train.yaml"]}
+
+
+def test_port_so3grid_refine_run_reads_nothing_of_the_jax_package(tmp_path):
+    """The refine CLI with coarse_mode=so3grid (GIGAPOSE_TINY, CPU, the
+    72-rotation grid) reads the SO(3) grid from the port's own assets and
+    opens nothing under gigapose_tpu/."""
+    from tests import synthetic_bop
+
+    root = synthetic_bop.build(str(tmp_path))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(GIGAPOSE_TINY="1", OMP_NUM_THREADS="1")
+    out = subprocess.run(
+        [sys.executable, "-c", CLI_SCRIPT % (str(REPO), "refine", FORBIDDEN),
+         f"machine.root_dir={root}", "test_dataset_name=tudl", "coarse_mode=so3grid",
+         "so3_grid_size=72", "n_refine_iterations=1", "device=cpu"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    assert result == {"leaked": [], "jax_files": [],
+                      "port_configs": ["bop.yaml", "large.yaml", "local.yaml", "test.yaml"]}
+    grid = REPO / "gigapose_tpu_torch" / "assets" / "so3_grid_72.qua"
+    assert grid.read_bytes() == (REPO / "gigapose_tpu" / "assets" / "so3_grid_72.qua").read_bytes()
 
 
 def test_port_sources_never_import_jax():

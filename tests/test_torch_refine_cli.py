@@ -11,6 +11,14 @@ im_id and obj_id exact, R within 2e-4, t within 2e-4 relative (and 0.01
 mm), scores within 2e-4: the refiner's own tolerance
 (tests/test_torch_refiner.py), whose cause is the crops' last bits. Both
 CLIs refine each batch in one chunk (refine.py:95).
+
+The MegaPose refiner (refiner_type=megapose, GIGAPOSE_TINY: WideResNet-34
+width 0.125, 60x80, 8 points) on the same csv, and coarse_mode=so3grid
+(the fixture's CNOS detections, the 576-rotation grid, one refine
+iteration) with the same numpy-made variables in both packages
+(tests/test_torch_megapose.py:tiny_megapose_nets): the same rows, R and
+scores within 2e-4, t within 2e-4 relative (the MegaPose refiner's
+tolerance there).
 """
 
 import os
@@ -22,6 +30,7 @@ import torch
 from scipy.spatial.transform import Rotation
 
 import refine as jax_refine
+from gigapose_tpu.refiner import megapose_refiner as jax_megapose
 from gigapose_tpu.refiner import refiner as jax_refiner
 from gigapose_tpu.refiner.network import CoarseScorerNet as JScorer
 from gigapose_tpu.refiner.network import RefinerNet as JRefiner
@@ -29,6 +38,7 @@ from gigapose_tpu_torch import refine
 from gigapose_tpu_torch.dataloader import bop_io
 from gigapose_tpu_torch.models.convert import refiner_flax_to_torch
 from tests import synthetic_bop
+from tests.test_torch_megapose import load_bridged_, tiny_megapose_nets
 from tests.test_torch_refiner import jax_vars
 
 K = np.array([[572.4114, 0, 320], [0, 573.57043, 240], [0, 0, 1.0]])
@@ -77,8 +87,65 @@ def weights(monkeypatch):
     monkeypatch.setenv("GIGAPOSE_TINY", "1")
 
 
+@pytest.fixture
+def megapose_weights(monkeypatch):
+    """The same numpy-made MegaPose variables in both CLIs' refiners."""
+    def jax_create(cls, mesh_paths, seed=0, config=jax_megapose.MegaposeRefinerConfig(),
+                   layers=None, width=1.0):
+        rnet, rv, cnet, cv = tiny_megapose_nets(config, width)
+        return cls(rnet, rv, cnet, cv, jax_refiner.MeshStore(mesh_paths, config.n_sample_points),
+                   config)
+
+    build = refine.build_megapose_refiner
+
+    def port_build(cfg, mesh_paths, tiny=False):
+        port = build(cfg, mesh_paths, tiny)
+        _, rv, _, cv = tiny_megapose_nets(port.config)
+        return load_bridged_(port, rv, cv)
+
+    monkeypatch.setattr(jax_megapose.MegaposeRefiner, "create", classmethod(jax_create))
+    monkeypatch.setattr(refine, "build_megapose_refiner", port_build)
+    monkeypatch.setenv("GIGAPOSE_TINY", "1")
+
+
 def _refined(root, tag):
     return bop_io.load_bop_csv(osp.join(root, tag, "predictions_refined", NAME.format(tag)))
+
+
+def _same_rows(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        for key in ("scene_id", "im_id", "obj_id"):
+            assert g[key] == w[key], key
+        np.testing.assert_allclose(g["score"], w["score"], atol=TOL)
+        np.testing.assert_allclose(g["R"], w["R"], atol=TOL, rtol=0)
+        np.testing.assert_allclose(g["t"], w["t"], rtol=TOL, atol=1e-2)
+        assert np.abs(g["R"] @ g["R"].T - np.eye(3)).max() < 1e-5
+
+
+@pytest.mark.parametrize("mode", ["csv", "so3grid"])
+def test_megapose_refine_cli_writes_the_jax_csv(tmp_path, megapose_weights, mode):
+    """refiner_type=megapose on the coarse csv (2 iterations), and
+    coarse_mode=so3grid so3_grid_size=576 (1 iteration; the JAX package's
+    tests/test_cli.py:test_cli_so3grid_coarse_refine): the rows of
+    refine.py."""
+    root = synthetic_bop.build(str(tmp_path))
+    common = [f"machine.root_dir={root}", "test_dataset_name=tudl"]
+    if mode == "csv":
+        common += ["refiner_type=megapose", "n_refine_iterations=2", "min_score=0",
+                   f"init_loc_path={_coarse_csv(root)}"]
+    else:
+        common += ["coarse_mode=so3grid", "so3_grid_size=576", "n_refine_iterations=1"]
+    jax_refine.main(common + ["run_id=jax", f"save_dir={root}/jax"])
+    paths, timing = refine.main(common + ["run_id=port", f"save_dir={root}/port", "device=cpu"])
+    assert paths == [osp.join(root, "port", "predictions_refined", NAME.format("port"))]
+    got, want = _refined(root, "port"), _refined(root, "jax")
+    assert len(got) >= 1
+    _same_rows(got, want)
+    if mode == "csv":
+        assert timing["images"] == 1 and timing["hypotheses"] == 6 and len(got) == 2
+    else:
+        assert timing["images"] >= 1 and timing["detections"] == len(got)
 
 
 def test_refine_cli_writes_the_jax_csv(tmp_path, weights):
@@ -92,13 +159,7 @@ def test_refine_cli_writes_the_jax_csv(tmp_path, weights):
     assert timing["images"] == 1 and timing["hypotheses"] == 6
     got, want = _refined(root, "port"), _refined(root, "jax")
     assert len(got) == len(want) == 2  # one row per instance
-    for g, w in zip(got, want):
-        for key in ("scene_id", "im_id", "obj_id"):
-            assert g[key] == w[key], key
-        np.testing.assert_allclose(g["score"], w["score"], atol=TOL)
-        np.testing.assert_allclose(g["R"], w["R"], atol=TOL, rtol=0)
-        np.testing.assert_allclose(g["t"], w["t"], rtol=TOL, atol=1e-2)
-        assert np.abs(g["R"] @ g["R"].T - np.eye(3)).max() < 1e-5
+    _same_rows(got, want)
     # the refiner moved a pose: a refined row that is none of its coarse
     # hypotheses (keep_best_init may keep a hypothesis as it was)
     hyps = bop_io.load_bop_csv(coarse, extra_column="instance_id")
@@ -110,7 +171,8 @@ def test_refine_cli_writes_the_jax_csv(tmp_path, weights):
 def test_refine_cli_drops_weak_instances_and_refuses(tmp_path, monkeypatch):
     """min_score (default 0.25) drops an instance whose best hypothesis is
     weaker; the options that are not ported raise with their ROADMAP item;
-    a hypothesis of an object without a mesh raises ValueError naming both."""
+    the MegaPose options no longer do; a hypothesis of an object without a
+    mesh raises ValueError naming both."""
     root = synthetic_bop.build(str(tmp_path))
     monkeypatch.setenv("GIGAPOSE_TINY", "1")
     base = [f"machine.root_dir={root}", "test_dataset_name=tudl",
@@ -119,15 +181,20 @@ def test_refine_cli_drops_weak_instances_and_refuses(tmp_path, monkeypatch):
     rows = bop_io.load_bop_csv(paths[0])
     assert [r["obj_id"] for r in rows] == [1] and timing["hypotheses"] == 3
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="device=cpu"):
-            refine.main(base)
-    for option, item in (("refiner_checkpoint=ckpt", "A12"), ("megapose_refiner_ckpt=x", "A13b"),
-                         ("megapose_coarse_ckpt=x", "A13b"), ("refiner_type=megapose", "A13b"),
-                         ("coarse_mode=so3grid", "A13b"),
+        for megapose in ([], ["refiner_type=megapose"], ["coarse_mode=so3grid"]):
+            with pytest.raises(RuntimeError, match="device=cpu"):
+                refine.main(base + megapose)
+    for option, item in (("refiner_checkpoint=ckpt", "A12"),
                          ("refine_pipeline_chunks=2", "A13c")):
         with pytest.raises(NotImplementedError, match=item):
             refine.main(base + ["device=cpu", option])
-    for unread in ("vis_every=5", "model.optim.ae_lr=1.0e-4", "n_rendered_views=2"):
+    for option in ("megapose_refiner_ckpt=x", "megapose_coarse_ckpt=x",
+                   "refiner_type=megapose", "coarse_mode=so3grid"):
+        with pytest.raises(ValueError, match="renders on the host"):  # not "A13b"
+            refine.main(base + ["device=cpu", option, "refine_renderer=device"])
+    with pytest.raises(FileNotFoundError, match="x"):  # the checkpoint is read
+        refine.main(base + ["device=cpu", "megapose_refiner_ckpt=x"])
+    for unread in ("vis_every=5", "model.optim.ae_lr=1.0e-4", "coarse_mode=grid"):
         with pytest.raises(ValueError, match=unread.split("=")[0]):
             refine.main(base + ["device=cpu", unread])
     missing = _coarse_csv(root, obj_ids=(1, 3), name="missing.csv")
