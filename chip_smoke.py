@@ -145,7 +145,10 @@ inputs, twice: with the bf16 AE (`serving_quant=off`) and with the int8 AE
    against 3 straight with deterministic algorithms, bit-equal
    ([train_resume]); 13.5 the coarse CLI with the int8 AE on phase 10's
    first SERVE_IMAGES images from 13.2's checkpoint directory, its csvs,
-   the served IST's weights and phase 10's launch formula ([train_serve]).
+   the served IST's weights and phase 10's launch formula, and the static
+   int8 IST of the served checkpoint against its f32 IST (per-descriptor
+   cosine on phase 10's first images' detections: the int8 IST on trained
+   weights) ([train_serve]).
 14. MegaPose refinement on the card, in phase 10's dataset and on phase 11's
    meshes, at the released checkpoints' width (WideResNet-34 width 1.0,
    240 x 320 renders with normals, 500 points, 5 iterations, one rendered
@@ -164,6 +167,29 @@ inputs, twice: with the bf16 AE (`serving_quant=off`) and with the int8 AE
    refiner itself) and with coarse_mode=so3grid on 2 images
    ([megapose_cli]); no hand-written kernel launched ([megapose], with the
    phase's seconds).
+15. the int8 IST on the card (models/ist_int8 on csrc/qconv.cu), at the
+   default IST (stem 7x7/s2 to 128 x 128 x 128, stages 128 / 192 / 256 /
+   512, 1x1 out conv to 256) and B = 32. 15.1 (after phase 9) each of its
+   convolution shapes: qconv, and act_absmax and quantize on its input
+   (also a static scale that clips), bit-equal to their plain versions;
+   device ms (CUDA-graph replays), the bound, the plain version's ms and
+   the yardsticks (bf16 cuDNN F.conv2d of the shape, torch._int_mm on a
+   pre-built im2col, vector_norm(inf) for the absmax), per shape
+   ([ist_kernel]) and summed over one forward's 21 launches
+   ([ist_kernels_per_forward]); 15.2 the int8 IST with per-image and with
+   static scales (calibrated on the first object's first 16 template
+   crops, margin 1.1) on phase 9's request of 32 against the f32 IST: mean
+   per-descriptor cosine over 0.995 / 0.99 (the JAX tests' gates), 21
+   qconv, 21 quantize and (per-image scales only) 21 act_absmax launches a
+   forward, device ms of the bf16, f32, int8 dynamic and static IST
+   ([ist_forward]); 15.3 the forward at B = 32 with the int8 AE and the
+   static int8 IST on its own store, stages as phase 9 ([forward_b32]), and
+   that IST on the card against the CPU on 4 crops, equal ([ist_card_vs_cpu]);
+   15.4 (after phase 14) the coarse CLI with model.serving_quant=int8
+   model.serving_quant_ist=int8-static on phase 10's first 40 images, cold
+   and from the cache: launches per run (calibration's dynamic forward at
+   each onboarding), per-image p50 / p90, the cold run against the
+   estimator called directly, the cached csv equal ([ist_cli]).
 
 Every kernel count is set to 0 just before a path is driven and read just
 after; launches made to compare a kernel with its plain version are not
@@ -174,8 +200,10 @@ never falls back to the CPU. The last lines are the kernels' JSON record
 (one entry per hand-written kernel and per chain that ports a TPU kernel:
 launches in the main path's runs, error, ms, plain_ms, bound_ms, bound_by,
 and library_ms or partial_library_ms; the rasterizer's also
-launches_templates and its template-shape times), the card's name and
-power limit from nvidia-smi, and the result JSON.
+launches_templates and its template-shape times; the three csrc/qconv.cu
+kernels' launches from 15.4's cold CLI run and their times summed over one
+B = 32 forward), the card's name and power limit from nvidia-smi, and the
+result JSON.
 """
 
 from __future__ import annotations
@@ -210,13 +238,16 @@ from gigapose_tpu_torch.eval import scorer as SC
 from gigapose_tpu_torch.eval import score_bop
 from gigapose_tpu_torch.kernels.build import build, load_library
 from gigapose_tpu_torch.lib3d.icosphere import template_object_poses
+from gigapose_tpu_torch.dataloader.templates_disk import list_objects, load_object_templates
 from gigapose_tpu_torch.models import vit_int8 as v8
+from gigapose_tpu_torch.models.ist_int8 import ISTNetInt8
 from gigapose_tpu_torch.ops import fused_matching as fm
+from gigapose_tpu_torch.ops import qconv as QC
 from gigapose_tpu_torch.ops import qmm as Q
 from gigapose_tpu_torch.ops.matching import select_top_k
 from gigapose_tpu_torch.pipeline.estimator import EstimatorConfig, GigaPoseEstimator
-from gigapose_tpu_torch.pipeline.runner import prepare_batch
-from gigapose_tpu_torch.pipeline.templates import onboard_templates
+from gigapose_tpu_torch.pipeline.runner import CALIB_MARGIN, CALIB_VIEWS, prepare_batch
+from gigapose_tpu_torch.pipeline.templates import onboard_templates, prepare_template_crops
 from gigapose_tpu_torch.refiner import device_render as DR
 from gigapose_tpu_torch.refiner.ops import normalize_T
 from gigapose_tpu_torch.refiner.refiner import (
@@ -272,7 +303,7 @@ WIRING_LIMITS = dict(rel_max=3e-2, rel_mean=2.5e-2, cos_gap=3e-4)
 WIRING_MOVED_COS = 0.9
 TOKENS = 257  # ViT-L/14 at 224 x 224: CLS + 16 x 16 patches, not padded
 INT8_COS_MIN = 0.99
-KERNELS = ("fused_matching", "qmm", "rasterizer")
+KERNELS = ("fused_matching", "qmm", "rasterizer", "qconv")
 HOST_SOURCES = ("rasterizer.cpp",)  # built with the host compiler
 # phase 10: test images, detections per test image (image i has
 # CLI_DETECTIONS[i % 6]), and the CLI's chunk (test.yaml's
@@ -378,8 +409,8 @@ def ptxas_report(log_text: str) -> dict:
     for ln in log_text.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
-            k = re.search(r"(match_bf16|match_f32|gemm|quant_rows|attention|prep|face|big|resolve)"
-                          r"_kernel(I\w*?E)?", m.group(1))
+            k = re.search(r"(match_bf16|match_f32|gemm|quant_rows|attention|prep|face|big|resolve"
+                          r"|act_absmax|quantize|qconv)_kernel(I\w*?E)?", m.group(1))
             name = k.group(1) + (k.group(2) or "") if k else m.group(1)
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
         if m and name:
@@ -700,7 +731,7 @@ def phase_int8_kernels(dev, qrec) -> dict:
 
 def reset_counts() -> None:
     for fn in (fm.fused_match_scores, Q.qmm, Q.qmm_mlp, Q.qmm_attn_block, Q._quantize_rows,
-               Q._attention):
+               Q._attention, QC.act_scale, QC.quantize_act, QC.qconv):
         fn.launches = 0
     for c in (fm.fused_match_scores.launches_by_dtype, Q._gemm.launches):
         for key in c:
@@ -716,18 +747,26 @@ def counts() -> dict:
                 match_bf16=by_dtype[torch.bfloat16], match_f32=by_dtype[torch.float32],
                 row_prologue=Q._quantize_rows.launches, attention_core=Q._attention.launches,
                 gemm_f32=gemm[Q._MODE_F32], gemm_residual=gemm[Q._MODE_RES],
-                gemm_gelu=gemm[Q._MODE_GELU], gemm_bf16=gemm[Q._MODE_BF16])
+                gemm_gelu=gemm[Q._MODE_GELU], gemm_bf16=gemm[Q._MODE_BF16],
+                qconv=QC.qconv.launches, quantize=QC.quantize_act.launches,
+                act_absmax=QC.act_scale.launches)
 
 
-def expected_counts(forwards: int, depth: int = 0, int8_ae_calls: int = 0) -> dict:
+def expected_counts(forwards: int, depth: int = 0, int8_ae_calls: int = 0,
+                    int8_ist_calls: int = 0, dynamic_ist_calls: int = 0) -> dict:
     """Launches of every kernel after `forwards` coarse forwards on a bf16
     store, `int8_ae_calls` of them (and of onboarding's AE calls) through
-    the int8 AE of `depth` blocks."""
+    the int8 AE of `depth` blocks, `int8_ist_calls` IST calls through the
+    int8 IST (IST_CONVS_PER_FORWARD convolutions each), `dynamic_ist_calls`
+    of them with per-image scales (calibration's forward, on static ones)."""
     n = int8_ae_calls
     return dict(fused_matching=forwards, qmm=2 * depth * n, qmm_mlp=depth * n,
                 qmm_attn_block=depth * n, match_bf16=forwards, match_f32=0,
                 row_prologue=4 * depth * n, attention_core=depth * n, gemm_f32=0,
-                gemm_residual=2 * depth * n, gemm_gelu=depth * n, gemm_bf16=depth * n)
+                gemm_residual=2 * depth * n, gemm_gelu=depth * n, gemm_bf16=depth * n,
+                qconv=IST_CONVS_PER_FORWARD * int8_ist_calls,
+                quantize=IST_CONVS_PER_FORWARD * int8_ist_calls,
+                act_absmax=IST_CONVS_PER_FORWARD * dynamic_ist_calls)
 
 
 def onboard(est, templates, dev, tag):
@@ -1092,9 +1131,10 @@ def phase_cli(templates, dev, smi, then=None) -> dict:
     against the estimator called directly and each cached run's csv against
     its AE's cold run; latency, throughput, onboarding and the host's
     decoding per run, the spread over each AE's runs and the int8 / bf16
-    ratios per pair of runs. `then(root, csv)`, when given, runs last in the
-    dataset's directory with the MultiHypothesis csv of the last run; its
-    result is record["then"]."""
+    ratios per pair of runs. `then(root, csv, info)`, when given, runs last
+    in the dataset's directory with the MultiHypothesis csv of the last run
+    and the dataset's per-image information (write_bop_dataset); its result
+    is record["then"]."""
     record = {"png": png_decode_times(templates)}
     log("png", shape="480x640", **{k: f"{v:.4g}" for k, v in record["png"].items()})
     quant = {"bf16": "model.serving_quant=off", "int8": "model.serving_quant=int8"}
@@ -1146,7 +1186,7 @@ def phase_cli(templates, dev, smi, then=None) -> dict:
             del runner
             torch.cuda.empty_cache()
         if then is not None:
-            record["then"] = then(root, csvs[CLI_RUNS[-1][0]][1])
+            record["then"] = then(root, csvs[CLI_RUNS[-1][0]][1], info)
     record["runs"], record["spread"] = runs, {}
     for precision in ("bf16", "int8"):
         mine = [runs[tag] for tag, p, _ in CLI_RUNS if p == precision]
@@ -2430,13 +2470,39 @@ def phase_train_serve(cli_root: str, ckpt_dir: str, smi) -> dict:
     t = runner.timing
     rec = dict(images=t["images"], forwards=forwards, rows=rows, run_s=run_s,
                images_per_s=t["images"] / t["run_s"], checkpoint=osp.basename(path),
-               launches=launched)
+               launches=launched, int8_ist=trained_int8_ist_cos(cli_root, est))
     log("train_serve", **{k: (f"{v:.4g}" if isinstance(v, float) else v) for k, v in rec.items()
                           if k != "launches"}, launches=repr(launched).replace(" ", ""),
         card=repr(smi))
     del runner, est
     torch.cuda.empty_cache()
     return rec
+
+
+def trained_int8_ist_cos(cli_root: str, est) -> dict:
+    """13.5's int8-IST reading on trained weights: the served checkpoint's
+    IST as the static int8 IST (calibrated as onboarding calibrates it, on
+    the first object's first template crops of phase 10's dataset) against
+    the same IST in f32, per-descriptor cosine on the detections of phase
+    10's first images (held out from the calibration)."""
+    dev = est.device
+    ist32 = f32_ist(est.ist_net)
+    q = ISTNetInt8.from_ist_net(ist32, static_scales=True).eval()
+    tdir = osp.join(cli_root, "datasets", "templates", "tudl")
+    rgba = load_object_templates(tdir, list_objects(tdir)[0], None, 1.0, as_uint8=True)["rgba"]
+    crops = []
+    for i, image in enumerate(InferenceDataset(osp.join(cli_root, "datasets"), "tudl")):
+        if i == 4:
+            break
+        crops.append(prepare_batch(image.rgb, image.masks, image.boxes_xyxy, image.labels,
+                                   image.K, dev).crops[:len(image.labels)])
+    crops = torch.cat(crops)
+    q.calibrate(prepare_template_crops(rgba[:CALIB_VIEWS], dev), margin=CALIB_MARGIN)
+    with torch.inference_mode():
+        got, ref = q.features(crops), ist32.features(crops)
+    check(bool(torch.isfinite(got).all()), "the trained int8 IST's features are not finite")
+    cos = descriptor_cos(got, ref)
+    return dict(crops=int(crops.shape[0]), cos_mean=float(cos.mean()), cos_min=float(cos.min()))
 
 
 def phase_training(cli_root: str, dev, smi) -> dict:
@@ -2764,6 +2830,318 @@ def phase_megapose(root: str, init_csv: str, dev, smi) -> dict:
     return rec
 
 
+# 15. int8 IST on the card, at model=large's default IST (initial_dim 128,
+# stages 128 / 192 / 256 / 512, descriptor 256, the 224 crop resized to 256)
+# and B = IST_B. Its convolutions, one entry per distinct (input, kernel,
+# stride, epilogue): (name, input side, C, O, kernel, stride, pad, residual,
+# relu, convolutions of a forward with this shape)
+IST_B = 32
+IST_CONVS = (
+    ("stem", 256, 3, 128, 7, 2, 3, False, True, 1),
+    ("l1_conv1", 128, 128, 128, 3, 1, 1, False, True, 2),
+    ("l1_conv2", 128, 128, 128, 3, 1, 1, True, True, 2),
+    ("l2_conv1_s2", 128, 128, 192, 3, 2, 1, False, True, 1),
+    ("l2_down", 128, 128, 192, 1, 2, 0, False, False, 1),
+    ("l2_conv1", 64, 192, 192, 3, 1, 1, False, True, 1),
+    ("l2_conv2", 64, 192, 192, 3, 1, 1, True, True, 2),
+    ("l3_conv1_s2", 64, 192, 256, 3, 2, 1, False, True, 1),
+    ("l3_down", 64, 192, 256, 1, 2, 0, False, False, 1),
+    ("l3_conv1", 32, 256, 256, 3, 1, 1, False, True, 1),
+    ("l3_conv2", 32, 256, 256, 3, 1, 1, True, True, 2),
+    ("l4_conv1_s2", 32, 256, 512, 3, 2, 1, False, True, 1),
+    ("l4_down", 32, 256, 512, 1, 2, 0, False, False, 1),
+    ("l4_conv1", 16, 512, 512, 3, 1, 1, False, True, 1),
+    ("l4_conv2", 16, 512, 512, 3, 1, 1, True, True, 2),
+    ("out", 16, 512, 256, 1, 1, 0, False, False, 1),
+)
+IST_CONVS_PER_FORWARD = sum(c[-1] for c in IST_CONVS)  # 21
+# the JAX tests' mean per-descriptor cosine gates against the float IST
+# (tests/test_ist_int8.py): dynamic scales, static scales on held-out inputs
+IST_COS_MIN = {"dynamic": 0.995, "static": 0.99}
+IST_CPU_CROPS = 4  # 15.3: crops of the request held card against CPU
+IST_CLI_IMAGES = 40  # 15.4: phase 10's first images
+
+
+def f32_ist(ist_net):
+    """A copy of a float ISTNet computing in f32 (TF32 is off)."""
+    net = copy.deepcopy(ist_net)
+    for m in net.modules():
+        if hasattr(m, "dtype"):
+            m.dtype = None
+    return net
+
+
+def descriptor_cos(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return F.cosine_similarity(a.float(), b.float(), dim=-1)
+
+
+def equal_or_fail(got, want, what: str) -> None:
+    torch.cuda.synchronize()
+    check(got.shape == want.shape and bool(torch.equal(got, want)),
+          f"{what}: {int((got != want).sum()) if got.shape == want.shape else got.shape} "
+          "values differ from the plain version")
+
+
+def im2col_int8(xq, ks, stride, pad) -> torch.Tensor:
+    """(B, H, W, C) int8 -> (B * OH * OW, K rounded up to 8) int8, for the
+    torch._int_mm yardstick (the product alone)."""
+    cols = F.unfold(xq.permute(0, 3, 1, 2).half(), ks, padding=pad, stride=stride)
+    cols = cols.transpose(1, 2).reshape(-1, cols.shape[1])
+    K8 = -(-cols.shape[1] // 8) * 8
+    return F.pad(cols, (0, K8 - cols.shape[1])).to(torch.int8).contiguous()
+
+
+def phase_ist_kernels(dev) -> dict:
+    """15.1: each convolution shape of the default IST at B = IST_B: qconv
+    (both epilogues where the IST has both), and act_absmax and quantize on
+    each distinct input, bit-equal to their plain versions; device ms
+    (CUDA-graph replays), bound, plain ms, and the yardsticks: bf16 cuDNN
+    F.conv2d of the same shape (NCHW), torch._int_mm on a pre-built im2col
+    (the product alone), torch.linalg.vector_norm(ord=inf) for the absmax."""
+    B = IST_B
+    rec = {"qconv": [], "inputs": {}}
+    for i, (name, S, C, O, ks, st, pad, res, relu, n) in enumerate(IST_CONVS):
+        x = torch.relu(randn(dev, (B, S, S, C), SEED + 300 + i)) if name != "stem" \
+            else randn(dev, (B, S, S, C), SEED + 300)
+        sx = QC.act_scale(x)
+        equal_or_fail(sx, QC.act_scale_plain(x), f"act_absmax {name}")
+        xq = QC.quantize_act(x, sx)
+        equal_or_fail(xq, QC.quantize_act_plain(x, sx), f"quantize {name}")
+        sa = torch.tensor(float(x.abs().max()) * 0.5 / 127.0, dtype=torch.float32, device=dev)
+        equal_or_fail(QC.quantize_act(x, sa), QC.quantize_act_plain(x, sa),
+                      f"quantize {name}, a static scale that clips")
+        key = f"{S}x{S}x{C}"
+        if key not in rec["inputs"]:
+            E = S * S * C
+            rec["inputs"][key] = dict(
+                act_absmax=dict(**graph_stats(lambda: QC.act_scale(x)),
+                                plain_ms=cuda_ms(lambda: QC.act_scale_plain(x)),
+                                partial_library_ms=graph_stats(lambda: torch.linalg.vector_norm(
+                                    x, ord=float("inf"), dim=(1, 2, 3)))["ms"],
+                                **bound(0.0, "f32", B * E * 4 + B * 4)),
+                quantize=dict(**graph_stats(lambda: QC.quantize_act(x, sx)),
+                              plain_ms=cuda_ms(lambda: QC.quantize_act_plain(x, sx)),
+                              **bound(0.0, "f32", B * E * 5 + B * 4)))
+        K = ks * ks * C
+        rng = np.random.default_rng(SEED + 320 + i)
+        wq = torch.as_tensor(rng.integers(-127, 128, (O, K)).astype(np.int8), device=dev)
+        ws = torch.as_tensor(rng.uniform(1e-3, 2e-2, O).astype(np.float32), device=dev)
+        b = torch.as_tensor(rng.normal(size=O).astype(np.float32), device=dev)
+        OH = QC.out_size(S, ks, st, pad)
+        M = B * OH * OH
+        r = randn(dev, (B, OH, OH, O), SEED + 340 + i) if res else None
+        kern = lambda: QC.qconv(xq, sx, wq, ws, b, st, pad, r, relu)
+        plain = lambda: QC.qconv_plain(xq, sx, wq, ws, b, st, pad, r, relu)
+        out = kern()
+        equal_or_fail(out, plain(), f"qconv {name}")
+        check(bool(torch.isfinite(out).all()) and float(out.abs().max()) > 0, f"qconv {name}")
+        xb = x.permute(0, 3, 1, 2).contiguous().bfloat16()
+        wb = torch.randn((O, C, ks, ks), device=dev, dtype=torch.bfloat16)
+        cols = im2col_int8(xq, ks, st, pad)
+        wcols = F.pad(wq, (0, cols.shape[1] - K)).contiguous().t()
+        entry = dict(name=name, count=n, M=M, K=K, N=O, residual=res, **graph_stats(kern),
+                     wrapper_ms=cuda_ms(kern, iters=5), plain_ms=cuda_ms(plain, warmup=1, iters=2),
+                     bf16_conv_ms=graph_stats(lambda: F.conv2d(xb, wb, None, st, pad))["ms"],
+                     int_mm_ms=graph_stats(lambda: torch._int_mm(cols, wcols))["ms"], input=key,
+                     **bound(2.0 * M * K * O, "int8",
+                             B * S * S * C + O * K + 8 * O + 4 * B + 4 * M * O * (2 if res else 1)))
+        entry["bound_share"] = entry["bound_ms"] / entry["ms"]
+        log("ist_kernel", kernel="qconv", **{k: (f"{v:.4g}" if isinstance(v, float) else v)
+                                             for k, v in entry.items()})
+        rec["qconv"].append(entry)
+        del x, xq, out, xb, cols, r
+    for key, v in rec["inputs"].items():
+        for kname, e in v.items():
+            log("ist_kernel", kernel=kname, input=key,
+                **{k: (f"{x:.4g}" if isinstance(x, float) else x) for k, x in e.items()})
+    # per forward: each shape times its convolutions
+    tot = lambda rows, f: float(sum(r["count"] * r[f] for r in rows))
+    q = rec["qconv"]
+    rec["forward"] = {"qconv": {f: tot(q, f) for f in ("ms", "plain_ms", "bound_ms",
+                                                       "bf16_conv_ms", "int_mm_ms")}}
+    for kname in ("act_absmax", "quantize"):
+        rows = [dict(count=r["count"], **rec["inputs"][r["input"]][kname]) for r in q]
+        rec["forward"][kname] = {f: tot(rows, f) for f in ("ms", "plain_ms", "bound_ms")}
+        if kname == "act_absmax":
+            rec["forward"][kname]["partial_library_ms"] = tot(rows, "partial_library_ms")
+    for kname, f in rec["forward"].items():
+        log("ist_kernels_per_forward", kernel=kname, B=B, launches=IST_CONVS_PER_FORWARD,
+            **{k: f"{v:.4g}" for k, v in f.items()}, bound_share=f"{f['bound_ms'] / f['ms']:.3f}")
+    torch.cuda.empty_cache()
+    return rec
+
+
+def ist_forward_counts(net, crops) -> tuple:
+    """One features() call with every kernel count set to 0 just before it
+    and read just after -> (features, counts)."""
+    reset_counts()
+    with torch.inference_mode():
+        feats = net.features(crops)
+    torch.cuda.synchronize()
+    return feats, counts()
+
+
+def phase_ist_forward(est, est8, templates, scene, dev, smi) -> dict:
+    """15.2 the whole int8 IST at B = IST_B on phase 9's request, dynamic and
+    static (calibrated on the first object's first CALIB_VIEWS template
+    crops), against the f32 IST: per-descriptor cosine (IST_COS_MIN),
+    launches per forward, device ms of the bf16, f32, int8 dynamic and int8
+    static IST; 15.3 the B = IST_B forward with the int8 AE and the static
+    int8 IST (its own store), stages as phase 9, and the static int8 IST on
+    the card against the CPU (the plain versions) on IST_CPU_CROPS crops."""
+    rgb, masks, boxes, labels, K, _ = scene
+    take = np.arange(IST_B) % len(labels)
+    batch = prepare_batch(rgb, masks[take], boxes[take], labels[take], K, dev)
+    crops = batch.crops
+    ist32 = f32_ist(est.ist_net)
+    calib = prepare_template_crops(templates[0][:CALIB_VIEWS], dev)
+    nets = {"dynamic": ISTNetInt8.from_ist_net(ist32).eval(),
+            "static": ISTNetInt8.from_ist_net(ist32, static_scales=True).eval()}
+    nets["static"].calibrate(calib, margin=CALIB_MARGIN)
+    with torch.inference_mode():
+        ref = ist32.features(crops)
+    rec = {}
+    for tag, net in nets.items():
+        feats, launched = ist_forward_counts(net, crops)
+        want = expected_counts(0, int8_ist_calls=1, dynamic_ist_calls=int(tag == "dynamic"))
+        check(launched == want, f"int8 IST {tag}: launches {launched}, expected {want}")
+        cos = descriptor_cos(feats, ref)
+        check(bool(torch.isfinite(feats).all()) and feats.shape == ref.shape,
+              f"int8 IST {tag}: features {tuple(feats.shape)}")
+        check(float(cos.mean()) > IST_COS_MIN[tag],
+              f"int8 IST {tag}: mean descriptor cosine {float(cos.mean())}")
+        rec[tag] = dict(cos_mean=float(cos.mean()), cos_min=float(cos.min()),
+                        launches={k: launched[k] for k in ("qconv", "quantize", "act_absmax")})
+    with torch.inference_mode():
+        times = dict(bf16_ms=cuda_ms(lambda: est.ist_apply(crops)),
+                     f32_ms=cuda_ms(lambda: ist32.features(crops)),
+                     int8_dynamic_ms=cuda_ms(lambda: nets["dynamic"].features(crops)),
+                     int8_static_ms=cuda_ms(lambda: nets["static"].features(crops)))
+    rec["times"] = times
+    log("ist_forward", B=IST_B, **{f"{t}_{k}": (f"{v:.6f}" if isinstance(v, float) else
+                                                repr(v).replace(" ", ""))
+                                   for t in ("dynamic", "static") for k, v in rec[t].items()},
+        **{k: f"{v:.3f}" for k, v in times.items()}, card=repr(smi))
+
+    # 15.3: the static int8 IST beside the int8 AE, calibrated as onboarding
+    # calibrates it, then its own store and the B = IST_B forward
+    est8s = dataclasses.replace(est8).quantize_serving(ist="static")
+    est8s.ist_net.calibrate(calib, margin=CALIB_MARGIN)
+    store8s = onboard(est8s, templates, dev, "int8+int8_ist_static")
+    rec["forward_b32"] = phase_forward_b32([("int8_ist_static", est8s, store8s)], scene,
+                                           dev)["int8_ist_static"]
+    cpu_net = copy.deepcopy(est8s.ist_net).to(torch.device("cpu"))
+    few = crops[:IST_CPU_CROPS]
+    with torch.inference_mode():
+        got = est8s.ist_apply(few).cpu()
+        t0 = time.perf_counter()
+        want = cpu_net.features(few.cpu())
+        cpu_s = time.perf_counter() - t0
+    diff = float((got - want).abs().max())
+    # tolerance 0: every step of the card's kernels rounds as the plain
+    # versions do (tests/test_torch_cuda_ist_int8.py)
+    check(diff == 0.0, f"static int8 IST, card against CPU: max |diff| {diff}")
+    rec["card_vs_cpu"] = dict(crops=IST_CPU_CROPS, max_abs_diff=diff, cpu_s=cpu_s)
+    log("ist_card_vs_cpu", crops=IST_CPU_CROPS, max_abs_diff=diff, cpu_s=f"{cpu_s:.2f}")
+    del est8s, store8s, nets, ist32, cpu_net
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_ist_cli(root: str, info, dev, smi) -> dict:
+    """15.4: the coarse CLI with model.serving_quant=int8 and
+    model.serving_quant_ist=int8-static on phase 10's dataset, its first
+    IST_CLI_IMAGES images: cold (no onboarded store under this tag) and
+    from the cache. Launches per run (calibration's one dynamic IST call at
+    each onboarding, also a cached one, then the static calls of onboarding
+    and of every forward), per-image p50 / p90, the cold run's csvs and
+    npz batches against the estimator called directly, the cached run's
+    csv equal to the cold one's."""
+    args = ["model.serving_quant=int8", "model.serving_quant_ist=int8-static",
+            f"max_images={IST_CLI_IMAGES}"]
+    forwards = sum(-(-cli_detections(im) // CLI_CHUNK) for im in range(IST_CLI_IMAGES))
+    onboard_calls = 2 * -(-NUM_VIEWS // 64)
+    rec, csvs = {}, None
+    for tag, cached in (("int8_ist", False), ("int8_ist_cached", True)):
+        runner, launched, paths = cli_run(root, args, tag)
+        est = runner.estimator
+        check(runner.timing["onboard_cached"] == cached, f"{tag}: onboarding cache")
+        check(isinstance(est.ist_net, ISTNetInt8) and est.ist_net.static_scales
+              and not est.ist_net.static_pending, f"{tag}: IST {type(est.ist_net).__name__}")
+        calls = forwards + (0 if cached else onboard_calls)
+        want = expected_counts(forwards, len(est.ae_net.blocks), calls,
+                               int8_ist_calls=calls + 1, dynamic_ist_calls=1)
+        check(launched == want, f"{tag}: launches {launched}, expected {want}")
+        if cached:
+            for a, b in zip(csvs, paths):
+                check(csv_rows(a) == csv_rows(b), f"{tag}: the cached run wrote another csv")
+            stats = {}
+        else:
+            stats = check_cli_outputs(runner, paths, info[:IST_CLI_IMAGES], root, dev, tag)
+            csvs = paths
+        ms = np.array([npz_time_ms(osp.join(osp.dirname(paths[0]), f"{i:06d}.npz"))
+                       for i in range(IST_CLI_IMAGES)])
+        t = runner.timing
+        rec[tag] = dict(onboard_s_per_object=t["onboard_s"] / t["objects"],
+                        image_ms_p50=float(np.percentile(ms, 50)),
+                        image_ms_p90=float(np.percentile(ms, 90)),
+                        images_per_s=t["images"] / t["run_s"], run_s=t["run_s"],
+                        images=t["images"], forwards=t["forwards"], **stats, launches=launched)
+        log("ist_cli", run=tag, **{k: (f"{v:.4g}" if isinstance(v, float) else v)
+                                   for k, v in rec[tag].items() if k != "launches"},
+            launches=repr({k: launched[k] for k in ("qconv", "quantize", "act_absmax",
+                                                    "qmm", "fused_matching")}).replace(" ", ""),
+            card=repr(smi))
+        del runner, est
+        torch.cuda.empty_cache()
+    return rec
+
+
+def ist_kernel_records(ist_rec: dict, cli_rec: dict) -> list:
+    """The kernels line's entries of csrc/qconv.cu: launches in 15.4's cold
+    CLI run (the main path through the user's entry point), launches_cli
+    per 15.4 run, launches_per_forward; ms, plain_ms, bound_ms and the
+    yardsticks as totals over the IST_CONVS_PER_FORWARD launches of one
+    B = IST_B forward (device ms from CUDA-graph replays), the shapes
+    beside them; max_abs_err 0: each checked bit-equal at every shape."""
+    k = ist_rec["kernels"]["forward"]
+    runs = {tag: r["launches"] for tag, r in cli_rec.items()}
+    out = []
+    for name, key, line in (("qconv", "qconv", 144), ("quantize", "quantize", 142),
+                            ("act_absmax", "act_absmax", 140)):
+        f = k[name]
+        e = dict(name=f"ist_{name}", route="cuda", source="gigapose_tpu_torch/csrc/qconv.cu",
+                 replaces=f"gigapose_tpu/models/ist_int8.py:{line} (XLA, no Pallas kernel)",
+                 launches=runs["int8_ist"][key], on_main_path=True,
+                 launches_per_forward=IST_CONVS_PER_FORWARD if name != "act_absmax" else 0,
+                 launches_per_forward_dynamic=IST_CONVS_PER_FORWARD,
+                 launches_cli={tag: n[key] for tag, n in runs.items()}, max_abs_err=0.0,
+                 ms=f["ms"], plain_ms=f["plain_ms"], bound_ms=f["bound_ms"],
+                 bound_by="bytes" if name != "qconv" else None, library_ms=None,
+                 per="the sum over one B=32 forward's launches")
+        if name == "qconv":
+            e["partial_library_ms"] = f["bf16_conv_ms"]
+            e["partial_library"] = "bf16 cuDNN F.conv2d of each shape"
+            e["int_mm_ms"] = f["int_mm_ms"]
+            ops_ms = sum(r["count"] * r["bound_ms"] for r in ist_rec["kernels"]["qconv"]
+                         if r["bound_by"] == "operations")
+            e["bound_by"] = "operations" if ops_ms > f["bound_ms"] / 2 else "bytes"
+            e["shapes"] = {r["name"]: {x: r[x] for x in ("count", "M", "K", "N", "ms", "ms_min",
+                                                          "ms_max", "plain_ms", "bound_ms",
+                                                          "bound_by", "bf16_conv_ms",
+                                                          "int_mm_ms")}
+                           for r in ist_rec["kernels"]["qconv"]}
+        elif name == "act_absmax":
+            e["partial_library_ms"] = f["partial_library_ms"]
+            e["partial_library"] = "torch.linalg.vector_norm(ord=inf) per image"
+        e["bound_share"] = e["bound_ms"] / e["ms"]
+        log("kernel", **{x: (f"{v:.4g}" if isinstance(v, float) else v) for x, v in e.items()
+                         if x not in ("shapes", "source", "route", "launches_cli")},
+            launches_cli=repr(e["launches_cli"]).replace(" ", ""))
+        out.append(e)
+    return out
+
+
 def raster_record(rec: dict) -> dict:
     """The rasterizer's entry of the kernels line, at the dataset's meshes:
     launches in phase 11.4's device runs on them (3 batches), launches_cli
@@ -2967,6 +3345,12 @@ def main() -> int:
     phase_int8_wiring(est8, preds8[0][1])
     phase_int8_vs_bf16(est, est8, preds8[0][1], dev)
     phase_forward_b32([("bf16", est, store), ("int8", est8, store8)], scenes[2], dev)
+
+    # 15.1-15.3: the int8 IST at B=32: its kernels at every convolution shape,
+    # the whole int8 IST on phase 9's request, the forward with the int8 AE
+    # and the static int8 IST, card against CPU (15.4 runs after phase 14)
+    ist_rec = {"kernels": phase_ist_kernels(dev)}
+    ist_rec.update(phase_ist_forward(est, est8, templates, scenes[2], dev, smi))
     del est, est8, store, store8, preds, preds8
     torch.cuda.empty_cache()
 
@@ -2975,11 +3359,15 @@ def main() -> int:
     # 12. templates from CAD models and BOP scoring, beside that dataset;
     # 13. training on the card, in 12's dataset, served on 10's;
     # 14. MegaPose refinement on the card, in 10's dataset and 11's meshes
-    def after_cli(root, csv):
+    # 15.4. the coarse CLI with the static int8 IST, in 10's dataset
+    def after_cli(root, csv, info):
         rec = phase_refinement(root, csv, dev, smi)
         rec["templates"] = phase_templates(root, dev, smi)
         rec["training"] = phase_training(root, dev, smi)
         rec["megapose"] = phase_megapose(root, csv, dev, smi)
+        t0 = time.perf_counter()
+        rec["ist_cli"] = phase_ist_cli(root, info, dev, smi)
+        log("ist_cli_phase", seconds=f"{time.perf_counter() - t0:.1f}")
         return rec
 
     cli_rec = phase_cli(templates, dev, smi, then=after_cli)
@@ -2987,6 +3375,7 @@ def main() -> int:
     kernels = kernel_records(record, qrec, krec, stats, bf16_counts, int8_counts, forwards,
                              cli_rec)
     kernels.append(raster_record(cli_rec["then"]))
+    kernels += ist_kernel_records(ist_rec, cli_rec["then"]["ist_cli"])
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

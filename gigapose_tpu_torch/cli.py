@@ -20,7 +20,12 @@ the weights of model.checkpoint_path when it is given.
 Precision and kernels, as test.py decides them: `use_pallas_matching: auto`
 is the fused matching kernel (ops/fused_matching) on CUDA and
 match_templates on the CPU; `serving_quant: auto` is the int8 AE (ops/qmm)
-on CUDA and off on the CPU; `feature_dtype: bf16` gives a bf16 store.
+on CUDA and off on the CPU; with the int8 AE, `model.serving_quant_ist`
+(off | int8 | int8-static; default off) serves the IST backbone on int8
+convolutions (ops/qconv) with per-image activation scales, or with static
+scales calibrated on the first object's template crops at onboarding (an
+unknown mode raises ValueError; test.py serves it as off);
+`feature_dtype: bf16` gives a bf16 store.
 
 A dataset with CAD models (<root>/datasets/<ds>/models) and no template set
 gets one first, as in test.py: scripts/render_templates.py renders the
@@ -31,9 +36,8 @@ renderer (test.py's own) on the CPU.
 
 Not served yet, and refused with the ROADMAP item to look up: multi-process
 runs (GIGAPOSE_COORDINATOR / GIGAPOSE_DISTRIBUTED) and store_shards > 1
-(A14), an orbax checkpoint directory of the JAX trainer (A12), int8 IST
-(serving_quant_ist, A11), the retrieval plots of vis_every (A9: they draw
-with PIL). An
+(A14), an orbax checkpoint directory of the JAX trainer (A12), the
+retrieval plots of vis_every (A9: they draw with PIL). An
 override whose key the CLI does not read (one of test.py's training or
 loader options) raises ValueError: it would change nothing.
 """
@@ -66,6 +70,8 @@ from gigapose_tpu_torch.utils.logging import disable_output
 # keys the CLI reads beside those of its config files
 OPTIONAL_KEYS = ("device", "onboarding_cache", "max_images", "vis_every",
                  "model.serving_quant_ist")
+# model.serving_quant_ist -> quantize_serving(ist=...)
+IST_MODES = {"off": False, "int8": True, "int8-static": "static"}
 
 
 def device_of(cfg: Config) -> torch.device:
@@ -145,20 +151,35 @@ def _maybe_quantize(est: GigaPoseEstimator, cfg: Config) -> GigaPoseEstimator:
     sq = str(cfg.model.get("serving_quant", "auto")).lower()
     if sq == "auto":
         sq = "int8" if est.device.type == "cuda" else "off"
+    ist_mode = cfg.model.get("serving_quant_ist", "off")
+    # YAML reads an unquoted off as False
+    ist_mode = "off" if ist_mode is False else str(ist_mode).lower()
+    if ist_mode not in IST_MODES:
+        raise ValueError(f"model.serving_quant_ist={ist_mode}: expected one of "
+                         f"{', '.join(IST_MODES)}")
     if sq == "int8":
-        ist_mode = str(cfg.model.get("serving_quant_ist", "off")).lower()
-        est.quantize_serving(ist={"int8": True, "int8-static": "static"}.get(ist_mode, False))
+        ist = IST_MODES[ist_mode]
+        est.quantize_serving(ist=ist)
         print("AE serving precision: int8 W8A8 kernels "
-              "(model.serving_quant=off for the bf16 / f32 path)")
+              + ({True: "+ int8 IST convolutions (per-image scales) ",
+                  "static": "+ int8 IST convolutions (static scales, calibrated at onboarding) "}
+                 .get(ist, ""))
+              + "(model.serving_quant=off for the bf16 / f32 path)")
     return est
 
 
 def _cache_tag(cfg: Config, est: GigaPoseEstimator) -> Optional[str]:
     """Onboarded-store cache key: int8-served features are not
-    interchangeable with float ones, so the int8 AE gets its own tag."""
+    interchangeable with float ones, nor static-scale IST features with
+    dynamic-scale ones: -int8 for the int8 AE, then -int8ist (-int8ists
+    for static scales) for the int8 IST, as test.py tags them."""
     tag = cfg.get("onboarding_cache")
-    if tag and type(est.ae_net).__name__ == "AENetInt8":
+    if not tag:
+        return tag
+    if type(est.ae_net).__name__ == "AENetInt8":
         tag = f"{tag}-int8"
+    if type(est.ist_net).__name__ == "ISTNetInt8":
+        tag = f"{tag}-int8ist{'s' if est.ist_net.static_scales else ''}"
     return tag
 
 

@@ -72,6 +72,17 @@ def _decode_image(data: bytes, name: str = "image") -> np.ndarray:
     return decode_png(data)
 
 
+def _to_rgb(img: np.ndarray) -> np.ndarray:
+    """A decoded image as (H, W, 3), as PIL's convert("RGB"): gray and
+    gray + alpha widen to gray x 3, RGBA (also a palette PNG with a tRNS
+    chunk) drops its alpha."""
+    if img.ndim == 2:
+        img = img[..., None]
+    if img.shape[-1] in (1, 2):
+        return np.repeat(img[..., :1], 3, axis=-1)
+    return np.ascontiguousarray(img[..., :3])
+
+
 def _parse_gt(gt: List[Dict], mm_to_m: float = 1e-3) -> np.ndarray:
     poses = np.zeros((len(gt), 4, 4))
     for i, g in enumerate(gt):
@@ -91,8 +102,7 @@ def _build_obs(key: str, parts: Dict[str, bytes], depth_scale: float = 1.0,
             break
     if rgb is None:
         return None
-    if rgb.ndim == 2:
-        rgb = np.repeat(rgb[..., None], 3, axis=-1)
+    rgb = _to_rgb(rgb)
 
     cam = json.loads(parts["camera.json"])
     K = np.asarray(cam["cam_K"], np.float64).reshape(3, 3)

@@ -43,9 +43,10 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-# per-source additions: the rasterizer rounds every product and sum on its
-# own, as its plain PyTorch version does (no contraction into FMA)
-EXTRA_NVCC_FLAGS = {"rasterizer": ["-fmad=false"]}
+# per-source additions: the rasterizer and the int8 convolution's epilogue
+# round every product and sum on their own, as their plain PyTorch versions
+# do (no contraction into FMA)
+EXTRA_NVCC_FLAGS = {"rasterizer": ["-fmad=false"], "qconv": ["-fmad=false"]}
 CXX_FLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17"]
 CXX_LINK_FLAGS = ["-static-libstdc++", "-static-libgcc", "-Wl,--exclude-libs,ALL"]
 

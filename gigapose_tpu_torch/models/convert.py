@@ -93,7 +93,33 @@ def ist_backbone_flax_to_torch(params: Mapping, stats: Mapping) -> Dict[str, tor
             if "down_conv" in bp:
                 _conv(bp["down_conv"], pre + "downsample.0.", out)
                 _bn(bp["down_bn"], bs["down_bn"], pre + "downsample.1.", out)
+    for name in ("attention1", "attention2"):
+        if name in params:
+            out.update(spatial_transformer_flax_to_torch(params[name], name + "."))
     _conv(params["out_conv"], "layer4_outconv.", out)
+    return out
+
+
+def spatial_transformer_flax_to_torch(p: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """models.ist_net.SpatialTransformer params -> the port's module, whose
+    names are the reference's (the inverse of the JAX package's
+    spatial_transformer_to_flax): block{d} -> transformer_blocks.{d},
+    to_out -> to_out.0, ff_proj -> ff.net.0.proj, ff_out -> ff.net.2."""
+    out: Dict[str, torch.Tensor] = {}
+    _ln(p["norm"], prefix + "norm.", out)
+    _conv(p["proj_in"], prefix + "proj_in.", out)
+    _conv(p["proj_out"], prefix + "proj_out.", out)
+    depth = sum(1 for k in p if k.startswith("block"))
+    for d in range(depth):
+        blk, b = p[f"block{d}"], f"{prefix}transformer_blocks.{d}."
+        for attn in ("attn1", "attn2"):
+            for proj in ("to_q", "to_k", "to_v"):
+                _linear(blk[attn][proj], f"{b}{attn}.{proj}.", out)
+            _linear(blk[attn]["to_out"], f"{b}{attn}.to_out.0.", out)
+        for n in ("norm1", "norm2", "norm3"):
+            _ln(blk[n], f"{b}{n}.", out)
+        _linear(blk["ff_proj"], b + "ff.net.0.proj.", out)
+        _linear(blk["ff_out"], b + "ff.net.2.", out)
     return out
 
 
@@ -164,6 +190,29 @@ def int8_params_flax_to_torch(qp: Mapping) -> Dict:
     out: Dict = {k: conv(k, v) for k, v in qp.items() if k != "blocks"}
     out["blocks"] = [{k: conv(k, v) for k, v in b.items()} for b in qp["blocks"]]
     return out
+
+
+def ist_int8_params_flax_to_torch(qp: Mapping) -> Dict:
+    """The JAX package's int8 IST serving tree (models/ist_int8.
+    prepare_int8_ist_params, and attach_static_act_scales' "sa", as numpy
+    arrays) -> the port's tree (models/ist_int8): the same keys and values,
+    each HWIO `wq` as an (O, KH*KW*I) int8 weight, K-contiguous."""
+
+    def conv(layer: Mapping) -> Dict:
+        out = {}
+        for k, a in layer.items():
+            a = np.asarray(a)
+            if k == "wq":
+                O = a.shape[-1]
+                out[k] = torch.from_numpy(np.ascontiguousarray(
+                    a.transpose(3, 0, 1, 2).reshape(O, -1), dtype=np.int8))
+            else:
+                out[k] = _t(a)
+        return out
+
+    return {"conv1": conv(qp["conv1"]),
+            "layers": [{k: conv(v) for k, v in blk.items()} for blk in qp["layers"]],
+            "out": conv(qp["out"])}
 
 
 # reference lightning checkpoint prefix -> (net, prefix of the port's module)

@@ -17,15 +17,23 @@ follow the original GigaPose ResNet / Regressor state dicts (conv1, bn1,
 layerL.B.{conv1,bn1,conv2,bn2,downsample.0,downsample.1}, layer4_outconv,
 {scale,inplane}_predictor.{0,2,4}), which models/convert.py fills.
 
-The optional SpatialTransformer stages are off in the shipped configuration
-and not ported yet (ROADMAP A5): num_attn_heads > 0 raises.
+The optional SpatialTransformer stages (num_attn_heads > 0; off in the
+shipped configuration) follow stages 2 and 4 as `attention1` / `attention2`:
+GroupNorm (32 groups, else gcd(C, 32); eps 1e-6) -> 1x1 proj_in -> one
+transformer block (LayerNorm eps 1e-6 -> self-attention, twice, then a
+GEGLU feed-forward with the tanh GELU of jax.nn.gelu; logits in f32) ->
+zero-initialized 1x1 proj_out -> residual, in f32. Their module names are
+the reference's (norm, proj_in, transformer_blocks.0.{attn1,attn2}.{to_q,
+to_k,to_v,to_out.0}, norm1-3, ff.net.0.proj, ff.net.2, proj_out).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -33,13 +41,35 @@ from torch import nn
 from gigapose_tpu_torch.ops.gather import gather_patches
 
 
-def resize_bilinear_align_corners(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+def linspace_points(size: int, n: int, device=None) -> torch.Tensor:
+    """The n sample points of an align_corners resize over `size` pixels,
+    as torch.linspace rounds them (the float IST's)."""
+    return torch.linspace(0.0, size - 1.0, n, device=device)
+
+
+def align_corners_points(size: int, n: int, device=None) -> torch.Tensor:
+    """The same points as the JAX package's jnp.linspace(0, size - 1, n)
+    gives them in f32: XLA folds its i * (1 / (n - 1)) * (size - 1) into
+    i * c with the constant c = f32(f32(1 / (n - 1)) * (size - 1)), and the
+    last point is size - 1. torch.linspace rounds most of them otherwise, an
+    ulp that an int8 quantizer can turn into a whole step (models/ist_int8
+    resizes at these)."""
+    if n == 1:
+        return torch.zeros(1, device=device)
+    c = float(np.float32(np.float32(1.0) / np.float32(n - 1)) * np.float32(size - 1))
+    pts = torch.arange(n - 1, dtype=torch.float32, device=device) * c
+    return torch.cat([pts, torch.full((1,), float(size - 1), device=device)])
+
+
+def resize_bilinear_align_corners(x: torch.Tensor, size: Tuple[int, int],
+                                  points=linspace_points) -> torch.Tensor:
     """NCHW bilinear resize with align_corners=True, in the reference's
-    gather-and-lerp form (so both packages round alike)."""
+    gather-and-lerp form (so both packages round alike), at the sample
+    points `points(size, n, device)` gives."""
     B, C, H, W = x.shape
     oh, ow = size
-    ys = torch.linspace(0.0, H - 1.0, oh, device=x.device)
-    xs = torch.linspace(0.0, W - 1.0, ow, device=x.device)
+    ys = points(H, oh, x.device)
+    xs = points(W, ow, x.device)
     y0 = torch.floor(ys).to(torch.int64).clamp(0, H - 2)
     x0 = torch.floor(xs).to(torch.int64).clamp(0, W - 2)
     wy = (ys - y0)[None, None, :, None]
@@ -102,6 +132,95 @@ class BasicBlock(nn.Module):
         return F.relu(x + y)
 
 
+class CrossAttention(nn.Module):
+    """Multi-head attention; context None is self-attention. Logits and
+    softmax in f32."""
+
+    def __init__(self, query_dim: int, num_heads: int, head_dim: int):
+        super().__init__()
+        inner = num_heads * head_dim
+        self.num_heads, self.head_dim = num_heads, head_dim
+        self.to_q = nn.Linear(query_dim, inner, bias=False)
+        self.to_k = nn.Linear(query_dim, inner, bias=False)
+        self.to_v = nn.Linear(query_dim, inner, bias=False)
+        # Dropout(0) keeps the reference's Sequential indices (to_out.0, ff.net.2)
+        self.to_out = nn.Sequential(nn.Linear(inner, query_dim), nn.Dropout(0.0))
+
+    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
+        ctx = x if context is None else context
+        split = lambda t: t.reshape(t.shape[0], -1, self.num_heads, self.head_dim)
+        q, k, v = split(self.to_q(x)), split(self.to_k(ctx)), split(self.to_v(ctx))
+        sim = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * self.head_dim ** -0.5
+        attn = torch.softmax(sim, dim=-1).to(x.dtype)
+        o = torch.einsum("bhqk,bkhd->bqhd", attn, v)
+        return self.to_out(o.reshape(o.shape[0], -1, self.num_heads * self.head_dim))
+
+
+class GEGLU(nn.Module):
+    def __init__(self, dim: int, inner: int):
+        super().__init__()
+        self.proj = nn.Linear(dim, inner * 2)
+
+    def forward(self, x):
+        h, gate = self.proj(x).chunk(2, dim=-1)
+        return h * F.gelu(gate, approximate="tanh")
+
+
+class FeedForward(nn.Module):
+    def __init__(self, dim: int, mult: int = 4):
+        super().__init__()
+        self.net = nn.Sequential(GEGLU(dim, dim * mult), nn.Dropout(0.0), nn.Linear(dim * mult, dim))
+
+    def forward(self, x):
+        return self.net(x)
+
+
+class BasicTransformerBlock(nn.Module):
+    """norm -> self-attn -> norm -> attn over context (self without one) ->
+    norm -> GEGLU feed-forward, each residual."""
+
+    def __init__(self, dim: int, num_heads: int, head_dim: int):
+        super().__init__()
+        self.attn1 = CrossAttention(dim, num_heads, head_dim)
+        self.attn2 = CrossAttention(dim, num_heads, head_dim)
+        self.ff = FeedForward(dim)
+        self.norm1 = nn.LayerNorm(dim, eps=1e-6)
+        self.norm2 = nn.LayerNorm(dim, eps=1e-6)
+        self.norm3 = nn.LayerNorm(dim, eps=1e-6)
+
+    def forward(self, x, context=None):
+        x = x + self.attn1(self.norm1(x))
+        x = x + self.attn2(self.norm2(x), context)
+        return x + self.ff(self.norm3(x))
+
+
+class SpatialTransformer(nn.Module):
+    """GroupNorm -> 1x1 proj_in -> transformer blocks -> zero-initialized 1x1
+    proj_out -> residual, on an NCHW map; tokens in the flax (H, W) order."""
+
+    def __init__(self, dim: int, num_heads: int, depth: int = 1):
+        super().__init__()
+        hd = dim // num_heads
+        inner = num_heads * hd
+        groups = 32 if dim % 32 == 0 else math.gcd(dim, 32)
+        self.norm = nn.GroupNorm(groups, dim, eps=1e-6)
+        self.proj_in = nn.Conv2d(dim, inner, 1)
+        self.transformer_blocks = nn.ModuleList(
+            BasicTransformerBlock(inner, num_heads, hd) for _ in range(depth))
+        self.proj_out = nn.Conv2d(inner, dim, 1)
+        nn.init.zeros_(self.proj_out.weight)
+        nn.init.zeros_(self.proj_out.bias)
+
+    def forward(self, x: torch.Tensor, context=None) -> torch.Tensor:
+        B, C, H, W = x.shape
+        h = self.proj_in(self.norm(x))
+        h = h.flatten(2).transpose(1, 2)  # (B, H*W, inner)
+        for blk in self.transformer_blocks:
+            h = blk(h, context)
+        h = h.transpose(1, 2).reshape(B, -1, H, W)
+        return x + self.proj_out(h)
+
+
 class ISTBackbone(nn.Module):
     """(B, 3, 224, 224) -> (B, P, C) stride-16 descriptor grid (f32)."""
 
@@ -115,12 +234,8 @@ class ISTBackbone(nn.Module):
         compute_dtype: Optional[str] = None,
     ):
         super().__init__()
-        if num_attn_heads > 0:
-            raise NotImplementedError(
-                "the IST SpatialTransformer stages are not ported yet (ROADMAP A5); "
-                "the shipped configuration has num_attn_heads=0"
-            )
         self.input_size = input_size
+        self.num_attn_heads = num_attn_heads
         self.dtype = torch.bfloat16 if compute_dtype == "bfloat16" else None
         self.conv1 = nn.Conv2d(3, initial_dim, 7, 2, padding=3, bias=False)
         self.bn1 = nn.BatchNorm2d(initial_dim, eps=1e-5)
@@ -131,6 +246,8 @@ class ISTBackbone(nn.Module):
                 BasicBlock(dim, dim, 1, self.dtype),
             )
             setattr(self, f"layer{i + 1}", layer)
+            if num_attn_heads > 0 and i in (1, 3):
+                setattr(self, f"attention{i // 2 + 1}", SpatialTransformer(dim, num_attn_heads))
             in_planes = dim
         self.layer4_outconv = nn.Conv2d(in_planes, descriptor_size, 1, bias=False)
 
@@ -139,6 +256,8 @@ class ISTBackbone(nn.Module):
         x = F.relu(batch_norm(self.bn1, conv(self.conv1, x, self.dtype)))
         for i in range(1, 5):
             x = getattr(self, f"layer{i}")(x)
+            if self.num_attn_heads > 0 and i in (2, 4):
+                x = getattr(self, f"attention{i // 2}")(x.to(torch.float32))
         x = conv(self.layer4_outconv, x, self.dtype)
         return x.flatten(2).transpose(1, 2).to(torch.float32)  # (B, H*W, C)
 

@@ -17,7 +17,8 @@ f32 run matches the JAX reference. Serving uses compute_dtype "bfloat16"
 (bf16 matmuls; f32 LayerNorm, softmax, BatchNorm and residual) and a bf16
 store (feature_dtype), as gigapose_tpu/configs/model/large.yaml does.
 `GigaPoseEstimator.quantize_serving()` swaps the AE for the int8 (W8A8)
-serving path (models/vit_int8.AENetInt8); call it before onboarding.
+serving path (models/vit_int8.AENetInt8), and with `ist=True` / "static"
+the IST backbone too (models/ist_int8.ISTNetInt8); call it before onboarding.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ import torch
 from torch import nn
 
 from gigapose_tpu_torch.models.ae_net import AENet
+from gigapose_tpu_torch.models.ist_int8 import ISTNetInt8
 from gigapose_tpu_torch.models.ist_net import ISTNet, default_ist_net
 from gigapose_tpu_torch.models.vit_int8 import AENetInt8
 from gigapose_tpu_torch.ops.fused_matching import fused_match_templates
@@ -209,7 +211,7 @@ class GigaPoseEstimator:
     """The two nets on one device plus the coarse entry points."""
 
     ae_net: Union[AENet, AENetInt8]
-    ist_net: ISTNet
+    ist_net: Union[ISTNet, ISTNetInt8]
     config: EstimatorConfig = EstimatorConfig()
 
     @classmethod
@@ -241,15 +243,19 @@ class GigaPoseEstimator:
         their plain versions on CPU tensors), quantized from the current
         weights on their device. `ae_apply`, and so onboarding, then use it.
 
+        ist=True also swaps the IST backbone for int8 convolutions with
+        per-image activation scales (models/ist_int8.ISTNetInt8: the
+        ops/qconv.py kernels); ist="static" asks for static activation
+        scales, which CoarseRunner.onboard calibrates on the first object's
+        template crops before it extracts any feature.
+
         Inference only. Call after loading weights and before onboarding:
         queries and the template store must share one feature extractor."""
-        if ist:
-            raise NotImplementedError(
-                "int8 IST serving (models/ist_int8, ist=True / 'static') is not "
-                "ported: ROADMAP A11"
-            )
         if not isinstance(self.ae_net, AENetInt8):
             self.ae_net = AENetInt8.from_ae_net(self.ae_net).eval()
+        if ist and not isinstance(self.ist_net, ISTNetInt8):
+            self.ist_net = ISTNetInt8.from_ist_net(self.ist_net,
+                                                   static_scales=ist == "static").eval()
         return self
 
     @property

@@ -39,6 +39,7 @@ from gigapose_tpu_torch.pipeline.templates import (
     TemplateStore,
     normalize_rgb,
     onboard_templates,
+    prepare_template_crops,
 )
 from gigapose_tpu_torch.utils.logging import get_logger
 from gigapose_tpu_torch.utils.timer import Timer
@@ -46,6 +47,10 @@ from gigapose_tpu_torch.utils.timer import Timer
 logger = get_logger(__name__)
 
 PAD_BUCKETS = (4, 8, 16, 32, 64, 128)
+# static int8 IST scales: calibrated on the first object's first CALIB_VIEWS
+# template crops, with CALIB_MARGIN of headroom over their absmax for query
+# crops that exceed it (the JAX runner's values)
+CALIB_VIEWS, CALIB_MARGIN = 16, 1.1
 
 
 def pad_bucket(n: int) -> int:
@@ -144,6 +149,11 @@ class CoarseRunner:
         finds a partial cache."""
         timer = Timer().tic()
         device = estimator.device
+        # static int8 IST scales are calibrated before any feature is
+        # extracted, also on a cache hit: the cached store was extracted with
+        # the scales these crops give (the cache tag says so), and the
+        # queries must use them too
+        cls._maybe_calibrate_ist(estimator, template_dir, num_templates, scale_factor)
         cache_path = osp.join(template_dir, f"onboarded_{cache_tag}.npz") if cache_tag else None
         make = lambda store, cached: cls(
             estimator=estimator, store=store, save_dir=save_dir, dataset_name=dataset_name,
@@ -182,6 +192,30 @@ class CoarseRunner:
                 for f in dataclasses.fields(store)})
             logger.info(f"Saved onboarded store to {cache_path}")
         return runner
+
+    @staticmethod
+    def _maybe_calibrate_ist(
+        estimator: GigaPoseEstimator,
+        template_dir: str,
+        num_templates: Optional[int] = None,
+        scale_factor: float = 1.0,
+    ) -> None:
+        """Calibrate the static activation scales of an int8 IST backbone
+        (quantize_serving(ist="static")) on the first object's first
+        CALIB_VIEWS template crops, prepared as onboarding prepares them
+        (the serving crop distribution). Does nothing unless the IST net
+        asked for static scales and has none."""
+        net = estimator.ist_net
+        if not getattr(net, "static_pending", False):
+            return
+        obj_ids = list_objects(template_dir)
+        data = load_object_templates(template_dir, obj_ids[0], num_templates, scale_factor,
+                                     as_uint8=True)
+        with torch.no_grad():
+            crops = prepare_template_crops(data["rgba"][:CALIB_VIEWS], estimator.device)
+            net.calibrate(crops, margin=CALIB_MARGIN)
+        logger.info(f"Calibrated static int8 IST activation scales on {int(crops.shape[0])} "
+                    f"template crops (object {obj_ids[0]}, margin {CALIB_MARGIN})")
 
     def prepare_batch(self, image: ImageDetections, sel=None) -> DetectionBatch:
         """Host arrays -> device crops, padded to a shape bucket. `sel`

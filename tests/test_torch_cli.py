@@ -167,8 +167,10 @@ def test_tiny_build_has_the_jax_tiny_shapes(monkeypatch):
 
 
 def test_cli_refuses_what_it_does_not_serve(tmp_path, monkeypatch):
-    """No card and no device= raises; so do the options that are not ported
-    and the overrides of keys the CLI does not read."""
+    """No card and no device= raises; so do the options that are not ported,
+    the overrides of keys the CLI does not read and an unknown
+    model.serving_quant_ist (test.py serves it as off). int8 serving with
+    the int8 IST runs."""
     root = synthetic_bop.build(str(tmp_path))
     base = [f"machine.root_dir={root}", "test_dataset_name=tudl"]
     if not torch.cuda.is_available():
@@ -184,9 +186,14 @@ def test_cli_refuses_what_it_does_not_serve(tmp_path, monkeypatch):
         with pytest.raises(ValueError, match=unread.split("=")[0]):
             cli.main(base + ["device=cpu", unread])
     monkeypatch.setenv("GIGAPOSE_TINY", "1")
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(ValueError, match="off, int8, int8-static"):
         cli.main(base + ["device=cpu", "model.serving_quant=int8",
-                         "model.serving_quant_ist=int8"])
+                         "model.serving_quant_ist=int4"])
+    runner = cli.main(base + ["device=cpu", "model.serving_quant=int8",
+                              "model.serving_quant_ist=int8", "data.template.num_templates=8"])
+    assert type(runner.estimator.ist_net).__name__ == "ISTNetInt8"
+    assert not runner.estimator.ist_net.static_scales and runner.timing["images"] == 1
+    assert torch.isfinite(runner.store.ist_features.float()).all()
     monkeypatch.setenv("GIGAPOSE_COORDINATOR", "localhost:1234")
     with pytest.raises(NotImplementedError, match="A14"):
         cli.main(base + ["device=cpu"])

@@ -405,3 +405,31 @@ def test_config_copies_match_the_jax_files(name):
                               for k in (keys(v, pre + n + ".") if isinstance(v, dict)
                                         else [pre + n])]
     assert sorted(keys(got)) == sorted(read)
+
+
+@pytest.mark.parametrize("kind", ["palette_trns", "rgba"])
+def test_build_obs_keeps_rgb_and_full_query_masks(kind):
+    """A palette PNG with a tRNS chunk (decoded to RGBA) and an RGBA PNG
+    come out of _build_obs as (H, W, 3), as PIL's convert("RGB") gives
+    them, and a mask of ones over the image gives prepare_batch a patch
+    mask of ones (the alpha channel must not become the query mask)."""
+    import torch
+
+    from gigapose_tpu_torch.pipeline.runner import prepare_batch
+
+    rng = np.random.default_rng(7)
+    if kind == "palette_trns":
+        img = Image.fromarray(rng.integers(0, 7, (64, 64)).astype(np.uint8), "P")
+        img.putpalette(rng.integers(0, 256, 21).tolist())
+        data = _pil_png(img, transparency=0)
+    else:
+        data = _pil_png(Image.fromarray(_smooth(3, (64, 64, 4)), "RGBA"))
+    assert png.decode_png(data).shape == (64, 64, 4)
+    cam = {"cam_K": [600.0, 0, 32, 0, 600.0, 32, 0, 0, 1]}
+    obs = scene._build_obs("000001_000000", {"rgb.png": data,
+                                             "camera.json": json.dumps(cam).encode()})
+    assert obs.rgb.shape == (64, 64, 3) and obs.rgb.dtype == np.uint8
+    np.testing.assert_array_equal(obs.rgb, _pil_read(data, "RGB"))
+    batch = prepare_batch(obs.rgb, np.ones((1, 64, 64), np.uint8), np.array([[0, 0, 64, 64]]),
+                          np.array([1]), obs.K, torch.device("cpu"))
+    assert float(batch.masks[0].mean()) == 1.0

@@ -8,6 +8,8 @@ to O(10) through ten convolutions with 3x3x512 contractions, to rtol 1e-4 /
 atol 1e-4; the regressor MLP to 1e-5.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -145,8 +147,61 @@ def test_ist_backbone_and_regressor_match_flax():
 
 
 def test_spatial_transformer_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        ISTBackbone(num_attn_heads=4)
+    """The SpatialTransformer stages are built (attention1 after stage 2,
+    attention2 after stage 4) and start as the identity: proj_out is zero,
+    so the backbone's features equal those of the same weights without the
+    stages."""
+    torch.manual_seed(0)
+    kw = dict(initial_dim=16, block_dims=(16, 16, 24, 32), descriptor_size=32)
+    with_attn = ISTBackbone(**kw, num_attn_heads=4).eval()
+    plain = ISTBackbone(**kw).eval()
+    for name in ("attention1", "attention2"):
+        st = getattr(with_attn, name)
+        assert not st.proj_out.weight.any() and not st.proj_out.bias.any()
+    assert not hasattr(plain, "attention1")
+    plain.load_state_dict({k: v for k, v in with_attn.state_dict().items()
+                           if not k.startswith("attention")}, strict=True)
+    x = T(_images(9, 2, 224))
+    with torch.no_grad():
+        assert torch.equal(with_attn(x), plain(x))
+
+
+def test_ist_spatial_transformer_matches_flax(monkeypatch):
+    """The float IST with num_attn_heads=2 (GroupNorm, self-attention twice,
+    GEGLU with the tanh GELU, proj_out randomized so that the stages show)
+    against flax at the tiny config, with the weights through the bridge:
+    the IST's 1e-4 tolerances. The resize samples the JAX package's points
+    here (models/ist_net.align_corners_points): the float IST's own
+    torch.linspace points are up to an ulp off them, which the random
+    attention stages carry to 1.4e-3."""
+    from gigapose_tpu_torch.models import ist_net as tist_net
+
+    monkeypatch.setattr(tist_net, "resize_bilinear_align_corners", functools.partial(
+        tist_net.resize_bilinear_align_corners, points=tist_net.align_corners_points))
+    kw = dict(initial_dim=16, block_dims=(16, 16, 24, 32), descriptor_size=32, input_size=256,
+              num_attn_heads=2)
+    jnet = JISTNet(backbone=JISTBackbone(**kw), regressor=JRegressor(hidden_dim=32))
+    variables = _ist_variables(jnet, seed=8)
+    rng = np.random.default_rng(8)
+    variables["params"] = jax.tree_util.tree_map_with_path(
+        lambda path, x: (rng.normal(scale=0.2, size=x.shape).astype(np.float32)
+                         if "proj_out" in jax.tree_util.keystr(path) else x),
+        variables["params"])
+    net = ISTNet(ISTBackbone(**kw), Regressor(64, hidden_dim=32)).eval()
+    net.load_state_dict(tconvert.ist_flax_to_torch(variables), strict=True)
+    x = _images(10, 2, 224)
+    want = np.asarray(jnet.apply(variables, jnp.asarray(x), method=jnet.features))
+    jnet0 = JISTNet(backbone=JISTBackbone(**{**kw, "num_attn_heads": 0}),
+                    regressor=JRegressor(hidden_dim=32))
+    without = np.asarray(jnet0.apply(
+        {"params": {**variables["params"], "backbone": {
+            k: v for k, v in variables["params"]["backbone"].items()
+            if not k.startswith("attention")}}, "batch_stats": variables["batch_stats"]},
+        jnp.asarray(x), method=jnet0.features))
+    assert np.abs(want - without).max() > 0.1  # the stages move the features
+    with torch.no_grad():
+        got = net.features(T(x)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.parametrize("name", ["vit_tiny_test", "vit_tiny_swiglu_test"])

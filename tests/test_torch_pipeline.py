@@ -222,9 +222,10 @@ def test_estimator_create_is_seeded():
     assert not a.ae_net.training and not a.ist_net.training
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        a.quantize_serving(ist=True)
     assert type(a.quantize_serving().ae_net).__name__ == "AENetInt8"
+    assert type(a.ist_net).__name__ == "ISTNet"
+    a.quantize_serving(ist=True)  # swaps the IST, on the IST's device
+    assert type(a.ist_net).__name__ == "ISTNetInt8" and a.device == torch.device("cpu")
 
 
 def test_estimator_create_defaults_to_the_card():

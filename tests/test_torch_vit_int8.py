@@ -41,6 +41,7 @@ from gigapose_tpu.pipeline import templates as jtemplates
 from gigapose_tpu_torch.models import convert as tconvert
 from gigapose_tpu_torch.models import vit_int8 as v8
 from gigapose_tpu_torch.models.ae_net import AENet
+from gigapose_tpu_torch.models.ist_int8 import ISTNetInt8
 from gigapose_tpu_torch.models.ist_net import ISTBackbone, ISTNet, Regressor
 from gigapose_tpu_torch.models.vit import VIT_CONFIGS, ViT
 from gigapose_tpu_torch.ops import qmm as Q
@@ -239,8 +240,15 @@ def test_quantized_slice_matches_jax():
 
 @pytest.mark.parametrize("ist", [True, "static"])
 def test_int8_ist_refused(ist):
+    """quantize_serving(ist=...) swaps both nets: the AE for AENetInt8 and
+    the IST for ISTNetInt8 (static scales asked for, and pending until
+    onboarding calibrates them, with ist="static"), wrapping the same float
+    IST."""
     est = test.GigaPoseEstimator.create("vit_tiny_test", seed=0, ist_descriptor_size=32,
                                            device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        est.quantize_serving(ist=ist)
-    assert isinstance(est.ae_net, AENet)  # nothing was swapped
+    float_ist = est.ist_net
+    est.quantize_serving(ist=ist)
+    assert isinstance(est.ae_net, v8.AENetInt8)
+    assert isinstance(est.ist_net, ISTNetInt8) and est.ist_net.float_net is float_ist
+    assert est.ist_net.static_pending == (ist == "static")
+    assert est.quantize_serving(ist=ist).ist_net.float_net is float_ist  # kept on a second call
