@@ -170,22 +170,28 @@ inputs, twice: with the bf16 AE (`serving_quant=off`) and with the int8 AE
 15. the int8 IST on the card (models/ist_int8 on csrc/qconv.cu), at the
    default IST (stem 7x7/s2 to 128 x 128 x 128, stages 128 / 192 / 256 /
    512, 1x1 out conv to 256) and B = 32. 15.1 (after phase 9) each of its
-   convolution shapes: qconv, and act_absmax and quantize on its input
-   (also a static scale that clips), bit-equal to their plain versions;
-   device ms (CUDA-graph replays), the bound, the plain version's ms and
-   the yardsticks (bf16 cuDNN F.conv2d of the shape, torch._int_mm on a
-   pre-built im2col, vector_norm(inf) for the absmax), per shape
-   ([ist_kernel]) and summed over one forward's 21 launches
-   ([ist_kernels_per_forward]); 15.2 the int8 IST with per-image and with
-   static scales (calibrated on the first object's first 16 template
-   crops, margin 1.1) on phase 9's request of 32 against the f32 IST: mean
-   per-descriptor cosine over 0.995 / 0.99 (the JAX tests' gates), 21
-   qconv, 21 quantize and (per-image scales only) 21 act_absmax launches a
-   forward, device ms of the bf16, f32, int8 dynamic and static IST
-   ([ist_forward]); 15.3 the forward at B = 32 with the int8 AE and the
-   static int8 IST on its own store, stages as phase 9 ([forward_b32]), and
-   that IST on the card against the CPU on 4 crops, equal ([ist_card_vs_cpu]);
-   15.4 (after phase 14) the coarse CLI with model.serving_quant=int8
+   convolution shapes: qconv (the stem's 3 channels padded to 16 inside
+   the call; at each block's conv1 also the int8 output under a static
+   scale), and act_absmax and quantize on its input (also a static scale
+   that clips), bit-equal to their plain versions; device ms (CUDA-graph
+   replays), the N tile and the route of the im2col tiles (TMA windows or
+   16-byte gathers), the bound (with the int8 output's bytes where it
+   writes int8),
+   the plain version's ms and the yardsticks (bf16 cuDNN F.conv2d of the
+   shape, torch._int_mm on a pre-built im2col, vector_norm(inf) for the
+   absmax), per shape ([ist_kernel]) and summed over the launches of one
+   forward with static scales (21 qconv, 8 of them int8 out, 13 quantize)
+   and with per-image scales (21 of each) ([ist_kernels_per_forward]);
+   15.2 the int8 IST with per-image and with static scales (calibrated on
+   the first object's first 16 template crops, margin 1.1) on phase 9's
+   request of 32 against the f32 IST: mean per-descriptor cosine over
+   0.995 / 0.99 (the JAX tests' gates), launches a forward (per-image: 21
+   qconv, 21 quantize, 21 act_absmax; static: 21, 13, 0), device ms of the
+   bf16, f32, int8 dynamic and static IST ([ist_forward]); 15.3 the
+   forward at B = 32 with the int8 AE and the static int8 IST on its own
+   store, stages as phase 9 ([forward_b32]), and that IST on the card
+   against the CPU on 4 crops, equal ([ist_card_vs_cpu]); 15.4 (after
+   phase 14) the coarse CLI with model.serving_quant=int8
    model.serving_quant_ist=int8-static on phase 10's first 40 images, cold
    and from the cache: launches per run (calibration's dynamic forward at
    each onboarding), per-image p50 / p90, the cold run against the
@@ -202,8 +208,8 @@ launches in the main path's runs, error, ms, plain_ms, bound_ms, bound_by,
 and library_ms or partial_library_ms; the rasterizer's also
 launches_templates and its template-shape times; the three csrc/qconv.cu
 kernels' launches from 15.4's cold CLI run and their times summed over one
-B = 32 forward), the card's name and power limit from nvidia-smi, and the
-result JSON.
+static B = 32 forward, the per-image-scale forward's beside them), the
+card's name and power limit from nvidia-smi, and the result JSON.
 """
 
 from __future__ import annotations
@@ -758,14 +764,17 @@ def expected_counts(forwards: int, depth: int = 0, int8_ae_calls: int = 0,
     store, `int8_ae_calls` of them (and of onboarding's AE calls) through
     the int8 AE of `depth` blocks, `int8_ist_calls` IST calls through the
     int8 IST (IST_CONVS_PER_FORWARD convolutions each), `dynamic_ist_calls`
-    of them with per-image scales (calibration's forward, on static ones)."""
+    of them with per-image scales (calibration's forward, on static ones);
+    the static calls quantize IST_FUSED_PER_FORWARD times fewer (each
+    block's conv1 writes conv2's codes)."""
     n = int8_ae_calls
     return dict(fused_matching=forwards, qmm=2 * depth * n, qmm_mlp=depth * n,
                 qmm_attn_block=depth * n, match_bf16=forwards, match_f32=0,
                 row_prologue=4 * depth * n, attention_core=depth * n, gemm_f32=0,
                 gemm_residual=2 * depth * n, gemm_gelu=depth * n, gemm_bf16=depth * n,
                 qconv=IST_CONVS_PER_FORWARD * int8_ist_calls,
-                quantize=IST_CONVS_PER_FORWARD * int8_ist_calls,
+                quantize=IST_CONVS_PER_FORWARD * int8_ist_calls
+                - IST_FUSED_PER_FORWARD * (int8_ist_calls - dynamic_ist_calls),
                 act_absmax=IST_CONVS_PER_FORWARD * dynamic_ist_calls)
 
 
@@ -2855,6 +2864,9 @@ IST_CONVS = (
     ("out", 16, 512, 256, 1, 1, 0, False, False, 1),
 )
 IST_CONVS_PER_FORWARD = sum(c[-1] for c in IST_CONVS)  # 21
+# with static scales each block's conv1 writes conv2's int8 codes (out_scale):
+# 8 quantize launches fewer a forward, on the conv2 inputs
+IST_FUSED_PER_FORWARD = sum(c[-1] for c in IST_CONVS if "_conv1" in c[0])  # 8
 # the JAX tests' mean per-descriptor cosine gates against the float IST
 # (tests/test_ist_int8.py): dynamic scales, static scales on held-out inputs
 IST_COS_MIN = {"dynamic": 0.995, "static": 0.99}
@@ -2893,11 +2905,16 @@ def im2col_int8(xq, ks, stride, pad) -> torch.Tensor:
 
 def phase_ist_kernels(dev) -> dict:
     """15.1: each convolution shape of the default IST at B = IST_B: qconv
-    (both epilogues where the IST has both), and act_absmax and quantize on
-    each distinct input, bit-equal to their plain versions; device ms
-    (CUDA-graph replays), bound, plain ms, and the yardsticks: bf16 cuDNN
-    F.conv2d of the same shape (NCHW), torch._int_mm on a pre-built im2col
-    (the product alone), torch.linalg.vector_norm(ord=inf) for the absmax."""
+    (both epilogues where the IST has both; at each block's conv1 also the
+    int8 output under a static scale, as the static forward calls it), and
+    act_absmax and quantize on each distinct input, bit-equal to their
+    plain versions (the stem's qconv pads its 3 channels to 16 inside the
+    timed call); device ms (CUDA-graph replays), the N tile, the im2col route,
+    bound, plain ms, and the yardsticks: bf16 cuDNN F.conv2d of the same
+    shape (NCHW), torch._int_mm on a pre-built im2col (the product alone),
+    torch.linalg.vector_norm(ord=inf) for the absmax. Per forward: the
+    static forward (the main path: int8 out at the conv1s, 13 quantize, no
+    absmax) and the per-image-scale one (f32 out, 21 of each)."""
     B = IST_B
     rec = {"qconv": [], "inputs": {}}
     for i, (name, S, C, O, ks, st, pad, res, relu, n) in enumerate(IST_CONVS):
@@ -2930,43 +2947,76 @@ def phase_ist_kernels(dev) -> dict:
         OH = QC.out_size(S, ks, st, pad)
         M = B * OH * OH
         r = randn(dev, (B, OH, OH, O), SEED + 340 + i) if res else None
-        kern = lambda: QC.qconv(xq, sx, wq, ws, b, st, pad, r, relu)
+        kern = lambda so=None: QC.qconv(xq, sx, wq, ws, b, st, pad, r, relu, out_scale=so)
         plain = lambda: QC.qconv_plain(xq, sx, wq, ws, b, st, pad, r, relu)
-        out = kern()
-        equal_or_fail(out, plain(), f"qconv {name}")
+        out, want = kern(), plain()
+        equal_or_fail(out, want, f"qconv {name}")
         check(bool(torch.isfinite(out).all()) and float(out.abs().max()) > 0, f"qconv {name}")
         xb = x.permute(0, 3, 1, 2).contiguous().bfloat16()
         wb = torch.randn((O, C, ks, ks), device=dev, dtype=torch.bfloat16)
         cols = im2col_int8(xq, ks, st, pad)
         wcols = F.pad(wq, (0, cols.shape[1] - K)).contiguous().t()
-        entry = dict(name=name, count=n, M=M, K=K, N=O, residual=res, **graph_stats(kern),
-                     wrapper_ms=cuda_ms(kern, iters=5), plain_ms=cuda_ms(plain, warmup=1, iters=2),
+        # the function's bytes: the unpadded int8 input, the weight, ws, b,
+        # the scales, the output (f32, or int8 codes) and the residual
+        nbytes = lambda out_bytes: (B * S * S * C + O * K + 8 * O + 4 * B
+                                    + M * O * (out_bytes + (4 if res else 0)))
+        entry = dict(name=name, count=n, M=M, K=K, N=O, n_tile=QC.n_tile(M, O),
+                     im2col=QC.im2col_route(QC.padded_channels(C), OH, OH, st)[0],
+                     residual=res,
+                     **graph_stats(kern), wrapper_ms=cuda_ms(kern, iters=5),
+                     plain_ms=cuda_ms(plain, warmup=1, iters=2),
                      bf16_conv_ms=graph_stats(lambda: F.conv2d(xb, wb, None, st, pad))["ms"],
                      int_mm_ms=graph_stats(lambda: torch._int_mm(cols, wcols))["ms"], input=key,
-                     **bound(2.0 * M * K * O, "int8",
-                             B * S * S * C + O * K + 8 * O + 4 * B + 4 * M * O * (2 if res else 1)))
+                     **bound(2.0 * M * K * O, "int8", nbytes(4)))
         entry["bound_share"] = entry["bound_ms"] / entry["ms"]
+        if "_conv1" in name:  # the static forward's call: conv2's codes out
+            so = torch.tensor(float(want.abs().max()) * CALIB_MARGIN / 127.0, dtype=torch.float32,
+                              device=dev)
+            equal_or_fail(kern(so), QC.quantize_act_plain(want, so), f"qconv {name}, int8 out")
+            int8_out = dict(**graph_stats(lambda: kern(so)),
+                            **bound(2.0 * M * K * O, "int8", nbytes(1)))
+            entry["int8_out"] = dict(int8_out, bound_share=int8_out["bound_ms"] / int8_out["ms"])
         log("ist_kernel", kernel="qconv", **{k: (f"{v:.4g}" if isinstance(v, float) else v)
-                                             for k, v in entry.items()})
+                                             for k, v in entry.items() if k != "int8_out"},
+            **{f"int8_out_{k}": f"{v:.4g}" for k, v in entry.get("int8_out", {}).items()
+               if isinstance(v, float)})
         rec["qconv"].append(entry)
-        del x, xq, out, xb, cols, r
+        del x, xq, out, want, xb, cols, r
     for key, v in rec["inputs"].items():
         for kname, e in v.items():
             log("ist_kernel", kernel=kname, input=key,
                 **{k: (f"{x:.4g}" if isinstance(x, float) else x) for k, x in e.items()})
-    # per forward: each shape times its convolutions
-    tot = lambda rows, f: float(sum(r["count"] * r[f] for r in rows))
+    # per forward: each shape times its convolutions, in both forwards
     q = rec["qconv"]
-    rec["forward"] = {"qconv": {f: tot(q, f) for f in ("ms", "plain_ms", "bound_ms",
-                                                       "bf16_conv_ms", "int_mm_ms")}}
+    static = lambda r: r.get("int8_out", r)  # the conv1s write int8 under static scales
+    fused = lambda r: "_conv2" in r["name"]  # their quantize went into conv1
+    tot = lambda rows, f: float(sum(r["count"] * r[f] for r in rows))
+    rec["forward"] = {"qconv": {f: tot(q, f) for f in ("ms", "plain_ms", "bf16_conv_ms",
+                                                       "int_mm_ms")}}
+    fq = rec["forward"]["qconv"]
+    fq["bound_ms"] = float(sum(r["count"] * static(r)["bound_ms"] for r in q))
+    fq["ms_dynamic"], fq["ms"] = fq["ms"], float(sum(r["count"] * static(r)["ms"] for r in q))
+    fq["bound_ms_dynamic"] = tot(q, "bound_ms")
+    fq["launches"] = fq["launches_dynamic"] = IST_CONVS_PER_FORWARD
     for kname in ("act_absmax", "quantize"):
-        rows = [dict(count=r["count"], **rec["inputs"][r["input"]][kname]) for r in q]
-        rec["forward"][kname] = {f: tot(rows, f) for f in ("ms", "plain_ms", "bound_ms")}
+        rows = [dict(count=r["count"], fused=fused(r), **rec["inputs"][r["input"]][kname])
+                for r in q]
+        f = {x: tot(rows, x) for x in ("ms", "plain_ms", "bound_ms")}
         if kname == "act_absmax":
-            rec["forward"][kname]["partial_library_ms"] = tot(rows, "partial_library_ms")
+            f["partial_library_ms"] = tot(rows, "partial_library_ms")
+            f.update(ms_dynamic=f["ms"], bound_ms_dynamic=f["bound_ms"], launches=0,
+                     launches_dynamic=IST_CONVS_PER_FORWARD)
+        else:
+            kept = [r for r in rows if not r["fused"]]
+            f.update(ms_dynamic=f["ms"], bound_ms_dynamic=f["bound_ms"], ms=tot(kept, "ms"),
+                     bound_ms=tot(kept, "bound_ms"), plain_ms=tot(kept, "plain_ms"),
+                     launches=IST_CONVS_PER_FORWARD - IST_FUSED_PER_FORWARD,
+                     launches_dynamic=IST_CONVS_PER_FORWARD)
+        rec["forward"][kname] = f
     for kname, f in rec["forward"].items():
-        log("ist_kernels_per_forward", kernel=kname, B=B, launches=IST_CONVS_PER_FORWARD,
-            **{k: f"{v:.4g}" for k, v in f.items()}, bound_share=f"{f['bound_ms'] / f['ms']:.3f}")
+        log("ist_kernels_per_forward", kernel=kname, B=B,
+            **{k: (f"{v:.4g}" if isinstance(v, float) else v) for k, v in f.items()},
+            bound_share=f"{f['bound_ms'] / f['ms']:.3f}" if f["ms"] else "n/a")
     torch.cuda.empty_cache()
     return rec
 
@@ -3100,10 +3150,12 @@ def phase_ist_cli(root: str, info, dev, smi) -> dict:
 def ist_kernel_records(ist_rec: dict, cli_rec: dict) -> list:
     """The kernels line's entries of csrc/qconv.cu: launches in 15.4's cold
     CLI run (the main path through the user's entry point), launches_cli
-    per 15.4 run, launches_per_forward; ms, plain_ms, bound_ms and the
-    yardsticks as totals over the IST_CONVS_PER_FORWARD launches of one
-    B = IST_B forward (device ms from CUDA-graph replays), the shapes
-    beside them; max_abs_err 0: each checked bit-equal at every shape."""
+    per 15.4 run, launches_per_forward (static and per-image scales); ms,
+    plain_ms, bound_ms and the yardsticks as totals over the launches of
+    one static B = IST_B forward (device ms from CUDA-graph replays), the
+    per-image-scale forward's beside them (ms_dynamic, bound_ms_dynamic),
+    the shapes with their N tiles; max_abs_err 0: each checked bit-equal
+    at every shape."""
     k = ist_rec["kernels"]["forward"]
     runs = {tag: r["launches"] for tag, r in cli_rec.items()}
     out = []
@@ -3113,28 +3165,31 @@ def ist_kernel_records(ist_rec: dict, cli_rec: dict) -> list:
         e = dict(name=f"ist_{name}", route="cuda", source="gigapose_tpu_torch/csrc/qconv.cu",
                  replaces=f"gigapose_tpu/models/ist_int8.py:{line} (XLA, no Pallas kernel)",
                  launches=runs["int8_ist"][key], on_main_path=True,
-                 launches_per_forward=IST_CONVS_PER_FORWARD if name != "act_absmax" else 0,
-                 launches_per_forward_dynamic=IST_CONVS_PER_FORWARD,
+                 launches_per_forward=f["launches"],
+                 launches_per_forward_dynamic=f["launches_dynamic"],
                  launches_cli={tag: n[key] for tag, n in runs.items()}, max_abs_err=0.0,
                  ms=f["ms"], plain_ms=f["plain_ms"], bound_ms=f["bound_ms"],
+                 ms_dynamic=f["ms_dynamic"], bound_ms_dynamic=f["bound_ms_dynamic"],
                  bound_by="bytes" if name != "qconv" else None, library_ms=None,
-                 per="the sum over one B=32 forward's launches")
+                 per="the sum over one static B=32 forward's launches" if name != "act_absmax"
+                 else "the sum over one per-image-scale B=32 forward's launches (a static "
+                 "forward makes none)")
         if name == "qconv":
             e["partial_library_ms"] = f["bf16_conv_ms"]
             e["partial_library"] = "bf16 cuDNN F.conv2d of each shape"
             e["int_mm_ms"] = f["int_mm_ms"]
-            ops_ms = sum(r["count"] * r["bound_ms"] for r in ist_rec["kernels"]["qconv"]
+            rows = ist_rec["kernels"]["qconv"]
+            ops_ms = sum(r["count"] * r["bound_ms"] for r in rows
                          if r["bound_by"] == "operations")
             e["bound_by"] = "operations" if ops_ms > f["bound_ms"] / 2 else "bytes"
-            e["shapes"] = {r["name"]: {x: r[x] for x in ("count", "M", "K", "N", "ms", "ms_min",
-                                                          "ms_max", "plain_ms", "bound_ms",
-                                                          "bound_by", "bf16_conv_ms",
-                                                          "int_mm_ms")}
-                           for r in ist_rec["kernels"]["qconv"]}
+            e["shapes"] = {r["name"]: dict({x: r[x] for x in (
+                "count", "M", "K", "N", "n_tile", "im2col", "ms", "ms_min", "ms_max", "plain_ms",
+                "bound_ms", "bound_by", "bf16_conv_ms", "int_mm_ms")},
+                **({"int8_out": r["int8_out"]} if "int8_out" in r else {})) for r in rows}
         elif name == "act_absmax":
             e["partial_library_ms"] = f["partial_library_ms"]
             e["partial_library"] = "torch.linalg.vector_norm(ord=inf) per image"
-        e["bound_share"] = e["bound_ms"] / e["ms"]
+        e["bound_share"] = e["bound_ms"] / e["ms"] if e["ms"] else None
         log("kernel", **{x: (f"{v:.4g}" if isinstance(v, float) else v) for x, v in e.items()
                          if x not in ("shapes", "source", "route", "launches_cli")},
             launches_cli=repr(e["launches_cli"]).replace(" ", ""))

@@ -255,16 +255,9 @@ constexpr size_t kWgSmem = 1024  // slack to align the ring to the swizzle's 102
 
 typedef unsigned long long u64;
 
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
+using hopper::cp_async16;
+using hopper::cp_async_commit;
+using hopper::cp_async_wait;
 using hopper::smem_desc;  // K-major operand in the 128-byte swizzle
 
 // d (64 x 256, f32) = [d +] A (64 x 16, bf16) . B^T (256 x 16, bf16)

@@ -91,7 +91,6 @@
 //   -inf bias and masked keys (-1e9) give exp = 0 exactly, so padded tokens
 //   never reach real rows.
 
-#include <cuda.h>  // CUtensorMap and its enums; the encoder comes through the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -101,6 +100,10 @@
 
 namespace {
 
+using hopper::cp_async16;
+using hopper::cp_async4;
+using hopper::cp_async_commit;
+using hopper::cp_async_wait;
 using hopper::u64;
 
 constexpr float kLnEps = 1e-6f;
@@ -299,20 +302,6 @@ constexpr size_t kGemmSmem = 1024  // slack to align the ring to the swizzle's 1
                              + 2 * kRing * 8;          // full and empty mbarriers
 enum { kOutF32 = 0, kOutF32Res = 1, kOutF32Gelu = 2, kOutBf16 = 3 };
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, int bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
                                          unsigned b1) {
   asm volatile(
@@ -322,35 +311,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// d (64 x 128, s32) = [d +] A (64 x 32, s8) . B^T (128 x 32, s8), both K-major
-// in shared memory (descriptors da, db); `acc` = 0 starts the sum
-__device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64], u64 da, u64 db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p;\n}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
-        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
-        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
-        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
-        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
-        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
-        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
-        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
-        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
-        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
-        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
-      : "l"(da), "l"(db), "r"(acc));
-}
-// the accumulators are final here: no read of them moves above the wait
-__device__ __forceinline__ void fence_acc(int (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
 
 // 0.5 * x * (1 + tanh(c * (x + 0.044715 * x * x * x))), left to right
 __device__ __forceinline__ float gelu_tanh(float x) {
@@ -536,9 +496,9 @@ __global__ void __launch_bounds__(kGemmThreads, 1) gemm_kernel(
 #pragma unroll
       for (int k = 0; k < kTileK / 32; ++k) {  // 32 int8 = 32 bytes per step
         const u64 db = hopper::smem_desc(b_s + 32 * k);
-        wgmma_m64n128k32_s8(acc[0], hopper::smem_desc(a_s + 32 * k), db, kb > 0 || k > 0);
-        wgmma_m64n128k32_s8(acc[1], hopper::smem_desc(a_s + kOpBytes / 2 + 32 * k), db,
-                            kb > 0 || k > 0);
+        hopper::wgmma_s8(acc[0], hopper::smem_desc(a_s + 32 * k), db, kb > 0 || k > 0);
+        hopper::wgmma_s8(acc[1], hopper::smem_desc(a_s + kOpBytes / 2 + 32 * k), db,
+                         kb > 0 || k > 0);
       }
       hopper::wgmma_commit();
       if (kb > 0) {  // the previous k-block's products are done: free its stage everywhere
@@ -549,8 +509,8 @@ __global__ void __launch_bounds__(kGemmThreads, 1) gemm_kernel(
       }
     }
     hopper::wgmma_wait<0>();
-    fence_acc(acc[0]);
-    fence_acc(acc[1]);
+    hopper::fence_acc(acc[0]);
+    hopper::fence_acc(acc[1]);
     if (wt == 0)
       for (unsigned c = 0; c < kCluster; ++c)
         hopper::mbar_arrive_cluster(empty((it - 1) % kRing), c);
@@ -618,96 +578,17 @@ __global__ void __launch_bounds__(kGemmThreads, 1) gemm_kernel(
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver through the runtime, so that the
-// library needs no link against libcuda; null where the driver lacks it
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// a (rows, K) K-contiguous int8 matrix as box_rows x 128-byte boxes in the
-// 128-byte swizzle; false if it cannot be encoded (alignment, driver)
-bool encode_operand(CUtensorMap* map, const void* p, int rows, int K, int box_rows) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)K};
-  const cuuint32_t box[2] = {(cuuint32_t)kTileK, (cuuint32_t)box_rows};
-  const cuuint32_t step[2] = {1u, 1u};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(p), dims, strides, box, step,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-constexpr int kMaxDevices = 64;  // the per-device launch settings cached
-
-// 384 threads, all of the shared memory, clusters of kCluster CTAs
-cudaLaunchConfig_t gemm_config(cudaLaunchAttribute* cluster, cudaStream_t stream) {
-  cluster->id = cudaLaunchAttributeClusterDimension;
-  cluster->val.clusterDim.x = kCluster;
-  cluster->val.clusterDim.y = cluster->val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.blockDim = dim3(kGemmThreads);
-  cfg.dynamicSmemBytes = kGemmSmem;
-  cfg.stream = stream;
-  cfg.attrs = cluster;
-  cfg.numAttrs = 1;
-  return cfg;
-}
-
-// once per mode and device: the shared-memory opt-in, and how many clusters
-// fit on the card at once (the persistent grid); a CUDA error is negative
-template <int kMode>
-int resident_clusters() {
-  static int resident[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return -(int)err;
-  if (dev >= kMaxDevices) return -(int)cudaErrorInvalidDevice;
-  if (resident[dev] == 0) {
-    err = cudaFuncSetAttribute(gemm_kernel<kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)kGemmSmem);
-    if (err != cudaSuccess) return -(int)err;
-    int sms = 0, n = 0;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return -(int)err;
-    cudaLaunchAttribute cluster;
-    cudaLaunchConfig_t cfg = gemm_config(&cluster, nullptr);
-    cfg.gridDim = dim3(sms / kCluster * kCluster);
-    err = cudaOccupancyMaxActiveClusters(&n, gemm_kernel<kMode>, &cfg);
-    if (err != cudaSuccess) return -(int)err;
-    if (n <= 0) return -(int)cudaErrorInvalidConfiguration;
-    resident[dev] = n;
-  }
-  return resident[dev];
-}
-
 template <int kMode>
 int launch_gemm(const void* xq, const void* xs, const void* wt, const void* ws,
                 const void* bias, const void* res, const void* ls, void* out, int T, int N,
                 int K, cudaStream_t stream) {
-  const int resident = resident_clusters<kMode>();
+  static int resident_cache[hopper::kMaxDevices] = {};
+  const int resident = hopper::resident_clusters(gemm_kernel<kMode>, resident_cache, kCluster,
+                                                 kGemmThreads, (int)kGemmSmem);
   if (resident < 0) return -resident;
   CUtensorMap map_a, map_b;  // A changes at every call: encoded per launch (host only)
-  if (!encode_operand(&map_a, xq, T, K, kASlice) || !encode_operand(&map_b, wt, N, K, kTileN))
+  if (!hopper::encode_kmajor_s8(&map_a, xq, T, K, kASlice) ||
+      !hopper::encode_kmajor_s8(&map_b, wt, N, K, kTileN))
     return (int)cudaErrorInvalidValue;
   const int pairs =
       (T + kTileM - 1) / kTileM * (((N + kTileN - 1) / kTileN + kCluster - 1) / kCluster);
@@ -715,7 +596,8 @@ int launch_gemm(const void* xq, const void* xs, const void* wt, const void* ws,
   auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
   const int vec = (N * esize) % 16 == 0 && aligned(out) && (res == nullptr || aligned(res));
   cudaLaunchAttribute cluster;
-  cudaLaunchConfig_t cfg = gemm_config(&cluster, stream);
+  cudaLaunchConfig_t cfg =
+      hopper::cluster_config(&cluster, kCluster, kGemmThreads, (int)kGemmSmem, stream);
   cfg.gridDim = dim3((pairs < resident ? pairs : resident) * kCluster);
   const cudaError_t err = cudaLaunchKernelEx(
       &cfg, gemm_kernel<kMode>, map_a, map_b, static_cast<const float*>(xs),

@@ -9,9 +9,14 @@ convolution calibrated on serving images (static, `attach_static_act_scales`;
 `ISTNetInt8.calibrate`, which template onboarding calls). Every convolution
 runs through ops/qconv.py: `act_scale` (dynamic only), `quantize_act` and
 `qconv`, whose epilogue fuses the dequantization, the folded BatchNorm, the
-block's residual and its ReLU. So a forward of the default backbone makes
-21 launches of each: the stem, 2 or 3 per BasicBlock (the stride-2 blocks'
-1x1 down convolution), and the 1x1 out convolution.
+block's residual and its ReLU. The default backbone has 21 convolutions:
+the stem, 2 or 3 per BasicBlock (the stride-2 blocks' 1x1 down
+convolution), and the 1x1 out convolution. With per-image scales a forward
+makes 21 launches of each kernel. With static scales it makes no
+`act_scale`, and each block's conv1 quantizes its own output with conv2's
+scale in its epilogue (`qconv(..., out_scale=)`: the same codes as
+`quantize_act` of the f32 output), so 21 `qconv` and 13 `quantize_act` on
+the default backbone's 8 blocks.
 
 Parameter tree: the JAX package's, key for key ({"conv1", "layers": [per
 block {"conv1", "conv2", ["down"]}], "out"}, each {"wq", "ws", "b", ["sa"]}),
@@ -103,9 +108,11 @@ def _quant(x: torch.Tensor, layer: dict, collect: Optional[list]):
     return QC.quantize_act(x, sx), sx
 
 
-def _conv(q, layer: dict, stride: int, pad: int, residual=None, relu: bool = False):
+def _conv(q, layer: dict, stride: int, pad: int, residual=None, relu: bool = False,
+          out_scale=None):
     xq, sx = q
-    return QC.qconv(xq, sx, layer["wq"], layer["ws"], layer["b"], stride, pad, residual, relu)
+    return QC.qconv(xq, sx, layer["wq"], layer["ws"], layer["b"], stride, pad, residual, relu,
+                    out_scale)
 
 
 def ist_features_int8(qp: dict, images: torch.Tensor, input_size: int = 256,
@@ -113,7 +120,8 @@ def ist_features_int8(qp: dict, images: torch.Tensor, input_size: int = 256,
     """(B, 3, H, W) -> (B, P, C) stride-16 descriptors, the ISTBackbone
     contract. Quantization happens in JAX's call order (conv1; per block
     conv1, conv2, down; out); the down convolution runs before conv2, whose
-    epilogue adds it as the residual."""
+    epilogue adds it as the residual. Where conv2 has a static scale (and
+    no calibration collects absmaxes), conv1's epilogue quantizes for it."""
     # at JAX's sample points: a quantizer turns an ulp of difference into a step
     x = resize_bilinear_align_corners(images.to(torch.float32), (input_size, input_size),
                                       align_corners_points)
@@ -122,8 +130,12 @@ def ist_features_int8(qp: dict, images: torch.Tensor, input_size: int = 256,
     for idx, blk in enumerate(qp["layers"]):
         # only the first block of a stage strides
         stride = STAGE_STRIDES[idx // 2] if idx % 2 == 0 else 1
-        y = _conv(_quant(x, blk["conv1"], _collect), blk["conv1"], stride, 1, relu=True)
-        yq = _quant(y, blk["conv2"], _collect)
+        q1 = _quant(x, blk["conv1"], _collect)
+        so = blk["conv2"].get("sa") if _collect is None else None
+        if so is not None:  # conv2's static scale: its int8 input from conv1's epilogue
+            yq = (_conv(q1, blk["conv1"], stride, 1, relu=True, out_scale=so), so)
+        else:
+            yq = _quant(_conv(q1, blk["conv1"], stride, 1, relu=True), blk["conv2"], _collect)
         if "down" in blk:
             x = _conv(_quant(x, blk["down"], _collect), blk["down"], stride, 0)
         x = _conv(yq, blk["conv2"], 1, 1, residual=x, relu=True)

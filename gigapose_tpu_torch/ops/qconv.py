@@ -11,12 +11,26 @@ conv (static):
     q = clip(round_half_even(x / scale), -127, 127)      (quantize_act)
     acc = conv(q, wq) in int32 -> y = acc * (sx * ws) + b [+ residual] [relu]
                                                          (qconv)
+    [q' = clip(round_half_even(y / so), -127, 127)]      (qconv, out_scale=so)
 
 The eps is 1e-12 and the scale is per image, not per row: these are not
 ops/qmm.py's scales. Layouts: activations NHWC; the weight `wq` is
 (O, KH*KW*I) int8, K-contiguous, K in the (kh, kw, i) order of an HWIO
 kernel (square kernels); `ws` and `b` are (O,) f32; a scale `sx` is (B,)
 per image or one element (static).
+
+`qconv(..., out_scale=so)` (so one static scale, the next convolution's)
+returns the int8 codes of the output instead of f32: exactly
+`quantize_act(qconv(...), so)`, in one launch, a quarter of the output's
+bytes. The int8 IST uses it for each block's conv1, whose output feeds only
+conv2's quantization, when conv2 has a static scale.
+
+The kernel takes channels in multiples of 16 (`CHANNELS`: one 16-byte copy
+of its im2col gather is 16 channels of one tap). `qconv` pads an input of
+other C (the int8 IST's stem: 3 channels -> 16) and its weight with zero
+codes before the launch (`pad_weight`), which add nothing to an integer
+sum. The N tile of the launch and the route of its im2col tiles follow
+the shape (`n_tile`, `im2col_route`).
 
 The plain `qconv` accumulates the integer codes exactly, as an f64
 convolution (every product and partial sum is an integer below 2^53), then
@@ -40,6 +54,7 @@ import torch
 import torch.nn.functional as F
 
 _EPS = 1e-12
+CHANNELS = 16  # the kernel's channel granularity
 
 
 def _div127(t: torch.Tensor) -> torch.Tensor:
@@ -59,6 +74,57 @@ def kernel_size(K: int, C: int) -> int:
 
 def out_size(size: int, ks: int, stride: int, pad: int) -> int:
     return (size + 2 * pad - ks) // stride + 1
+
+
+def padded_channels(C: int) -> int:
+    """C rounded up to the kernel's multiple of CHANNELS."""
+    return -(-C // CHANNELS) * CHANNELS
+
+
+def pad_weight(wq: torch.Tensor, C: int) -> torch.Tensor:
+    """(O, KH*KW*C) int8 -> (O, KH*KW*padded_channels(C)), zero codes in
+    the added channels of every tap."""
+    O, K = wq.shape
+    Cp = padded_channels(C)
+    if Cp == C:
+        return wq
+    return F.pad(wq.reshape(O, K // C, C), (0, Cp - C)).reshape(O, -1).contiguous()
+
+
+def n_tile(M: int, O: int) -> int:
+    """The N tile (output channels per CTA tile) of qconv's launch for an
+    (M, O) output: 128 for O <= 128; 192 for O <= 192 or a multiple of 192
+    but not of 256 (no wasted columns at the IST's 192); 256 for a multiple
+    of 256 that still gives at least 96 tiles of 128 rows (three quarters of
+    an H100's 132 SMs busy); 128 otherwise (the IST's out conv: 64 tiles at
+    256 would leave half the card idle)."""
+    if O <= 128:
+        return 128
+    if O <= 192 or (O % 192 == 0 and O % 256):
+        return 192
+    if O % 256 == 0 and -(-M // 128) * (O // 256) >= 96:
+        return 256
+    return 128
+
+
+def im2col_route(C: int, OH: int, OW: int, stride: int) -> tuple:
+    """How qconv's launch loads its im2col tiles: ("tma", window columns)
+    or ("gather", 0).
+
+    "tma" where C is a multiple of 128 (a k-block is one tap's 128
+    channels), each 128-row tile is a window of one image (OW a multiple of
+    128: 1 x 128; else OW a divisor of 128 with OH * OW a multiple of 128:
+    128 / OW rows of OW) and a box spans at most 256 input columns and rows:
+    TMA loads each k-block of the tile as one box of the input's 4-D tensor
+    map. Any other shape (the IST's stem and its convolutions over 192
+    channels among them): "gather", 16-byte cp.async copies row by row.
+    The decision is made here alone: the C entry point takes it as given and
+    checks only what its kernel and the TMA box need."""
+    cols = 128 if OW >= 128 else OW
+    tiles = OW % 128 == 0 if OW >= 128 else 128 % OW == 0 and OH * OW % 128 == 0
+    if C % 128 == 0 and tiles and cols * stride <= 256 and 128 // cols * stride <= 256:
+        return "tma", cols
+    return "gather", 0
 
 
 def _per_image(sx: torch.Tensor) -> torch.Tensor:
@@ -107,7 +173,7 @@ def _lib():
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.gp_qconv_act_scale.argtypes = [p, p, p, i, ll, p]
     lib.gp_qconv_quantize.argtypes = [p, p, i, p, i, ll, p]
-    lib.gp_qconv_conv.argtypes = [p, p, i] + [p] * 5 + [i] * 11 + [p]
+    lib.gp_qconv_conv.argtypes = [p, p, i] + [p] * 6 + [i] * 13 + [p]
     for fn in (lib.gp_qconv_act_scale, lib.gp_qconv_quantize, lib.gp_qconv_conv):
         fn.restype = ctypes.c_int
     return lib
@@ -201,11 +267,14 @@ def qconv(
     pad: int,
     residual: Optional[torch.Tensor] = None,  # (B, OH, OW, O) f32
     relu: bool = False,
+    out_scale: Optional[torch.Tensor] = None,  # one element, f32
 ) -> torch.Tensor:
     """int8 conv with int32 accumulation -> acc * (sx * ws) + b [+ residual]
-    [relu], f32 (B, OH, OW, O)."""
+    [relu], f32 (B, OH, OW, O); with `out_scale` its int8 codes
+    clip(round_half_even(y / out_scale), +-127) instead."""
     if _device(xq, "qconv") == "cpu":
-        return qconv_plain(xq, sx, wq, ws, b, stride, pad, residual, relu)
+        y = qconv_plain(xq, sx, wq, ws, b, stride, pad, residual, relu)
+        return y if out_scale is None else quantize_act_plain(y, out_scale)
     B, H, W, C = xq.shape
     O, K = wq.shape
     ks = kernel_size(K, C)
@@ -221,11 +290,22 @@ def qconv(
     if residual is not None:
         _check(dev, "residual", residual, torch.float32, (B, OH, OW, O))
     stride_sx = _check_scale(dev, sx, B)
-    out = torch.empty((B, OH, OW, O), dtype=torch.float32, device=dev)
+    if out_scale is not None:
+        _check(dev, "out_scale", out_scale, torch.float32)
+        if out_scale.numel() != 1:
+            raise ValueError(f"out_scale has {out_scale.numel()} elements: one static scale")
+    if C % CHANNELS:  # zero codes in the added channels: the same sums
+        xq = F.pad(xq, (0, padded_channels(C) - C))
+        wq = pad_weight(wq, C)
+        C = xq.shape[-1]
+    out = torch.empty((B, OH, OW, O), dtype=torch.float32 if out_scale is None else torch.int8,
+                      device=dev)
     with torch.cuda.device(dev):
         _call(_lib().gp_qconv_conv, xq.data_ptr(), sx.data_ptr(), stride_sx, wq.data_ptr(),
               ws.data_ptr(), b.data_ptr(), None if residual is None else residual.data_ptr(),
-              out.data_ptr(), B, H, W, C, OH, OW, O, ks, stride, pad, int(relu), what="qconv")
+              out.data_ptr(), None if out_scale is None else out_scale.data_ptr(), B, H, W, C,
+              OH, OW, O, ks, stride, pad, int(relu), n_tile(B * OH * OW, O),
+              im2col_route(C, OH, OW, stride)[1], what="qconv")
     qconv.launches += 1
     return out
 

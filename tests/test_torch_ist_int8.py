@@ -92,17 +92,19 @@ def test_prepare_int8_ist_params_matches_jax():
     assert got["conv1"]["wq"].shape == (16, 7 * 7 * 3) and got["conv1"]["wq"].is_contiguous()
 
 
-@pytest.mark.parametrize("ks,stride,pad,residual,relu,static", [
+QCONV_CASES = [
     (7, 2, 3, False, True, False),  # the stem: K = 147, not a multiple of 16
     (3, 1, 1, True, True, False),
     (3, 2, 1, False, True, True),
     (1, 2, 0, False, False, False),
     (1, 1, 0, False, False, True),
-])
-def test_qconv_ops_match_jax_qconv(ks, stride, pad, residual, relu, static):
-    """ops/qconv's act_scale -> quantize_act -> qconv on CPU tensors (the
-    plain versions) == JAX's _qconv (backend "ref") on odd shapes, with the
-    residual and ReLU applied to JAX's output as its forward does: equal."""
+]
+
+
+def _jax_qconv_case(ks, stride, pad, residual, relu, static):
+    """JAX's _qconv (backend "ref") on an odd shape, with the residual and
+    ReLU applied to its output as its forward does; the same layer in the
+    port's layout, x and the residual."""
     rng = np.random.default_rng(ks + 10 * stride)
     B, H, W, C, O = 2, 13, 11, 3 if ks == 7 else 24, 20
     x = (rng.normal(size=(B, H, W, C)) * rng.uniform(0.5, 3, (B, 1, 1, 1))).astype(np.float32)
@@ -119,6 +121,58 @@ def test_qconv_ops_match_jax_qconv(ks, stride, pad, residual, relu, static):
     want = np.asarray(jax.nn.relu(want) if relu else want)
     tl = convert.ist_int8_params_flax_to_torch(
         {"conv1": _tree(layer), "layers": [], "out": _tree(layer)})["conv1"]
+    return x, tl, want, res
+
+
+@pytest.mark.parametrize("ks,stride,pad,residual,relu,static", QCONV_CASES)
+def test_qconv_out_scale_matches_jax(ks, stride, pad, residual, relu, static):
+    """qconv(..., out_scale=so) on CPU tensors == JAX's _qconv output
+    quantized with the static scale so as JAX quantizes (clip(round(y /
+    so), +-127)), so small that a part of it clips: equal codes."""
+    x, tl, want, res = _jax_qconv_case(ks, stride, pad, residual, relu, static)
+    so = np.float32(np.abs(want).max() * 0.6 / 127.0)
+    want_q = np.asarray(jnp.clip(jnp.round(jnp.asarray(want) / so), -127, 127)).astype(np.int8)
+    xt = T(x)
+    sx = tl["sa"] if static else QC.act_scale(xt)
+    got = QC.qconv(QC.quantize_act(xt, sx), sx, tl["wq"], tl["ws"], tl["b"], stride, pad,
+                   T(res) if residual else None, relu, out_scale=torch.tensor(so))
+    assert got.dtype == torch.int8 and got.shape == want_q.shape
+    np.testing.assert_array_equal(got.numpy(), want_q)
+    assert (np.abs(want_q) == 127).any()
+
+
+@pytest.mark.parametrize("C", [3, 24])
+def test_padded_channels_match_jax(C):
+    """What qconv does on the card for C not a multiple of 16: the codes and
+    the weight padded with zero channels (pad_weight) give JAX's _qconv on
+    the unpadded input (zero codes add 0 to the integer sums)."""
+    rng = np.random.default_rng(C)
+    B, H, W, O, ks = 2, 13, 11, 20, 7 if C == 3 else 3
+    pad = ks // 2
+    x = (rng.normal(size=(B, H, W, C)) * rng.uniform(0.5, 3, (B, 1, 1, 1))).astype(np.float32)
+    wq, ws = J8._quantize_conv_weight(rng.normal(size=(ks, ks, C, O)).astype(np.float32))
+    layer = {"wq": wq, "ws": ws, "b": jnp.asarray(rng.normal(size=O), jnp.float32)}
+    want = np.asarray(J8._qconv(jnp.asarray(x), layer, 2, pad, "ref"))
+    tl = convert.ist_int8_params_flax_to_torch(
+        {"conv1": _tree(layer), "layers": [], "out": _tree(layer)})["conv1"]
+    xt = T(x)
+    sx = QC.act_scale(xt)
+    Cp = QC.padded_channels(C)
+    assert Cp == 16 * -(-C // 16)
+    q = torch.nn.functional.pad(QC.quantize_act(xt, sx), (0, Cp - C))
+    wp = QC.pad_weight(tl["wq"], C)
+    assert wp.shape == (O, ks * ks * Cp) and not wp.reshape(O, -1, Cp)[..., C:].any()
+    assert torch.equal(wp.reshape(O, -1, Cp)[..., :C], tl["wq"].reshape(O, -1, C))
+    got = QC.qconv(q, sx, wp, tl["ws"], tl["b"], 2, pad)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("ks,stride,pad,residual,relu,static", QCONV_CASES)
+def test_qconv_ops_match_jax_qconv(ks, stride, pad, residual, relu, static):
+    """ops/qconv's act_scale -> quantize_act -> qconv on CPU tensors (the
+    plain versions) == JAX's _qconv (backend "ref") on odd shapes, with the
+    residual and ReLU applied to JAX's output as its forward does: equal."""
+    x, tl, want, res = _jax_qconv_case(ks, stride, pad, residual, relu, static)
     xt = T(x)
     sx = tl["sa"] if static else QC.act_scale(xt)
     if not static:
@@ -130,6 +184,48 @@ def test_qconv_ops_match_jax_qconv(ks, stride, pad, residual, relu, static):
                    T(res) if residual else None, relu)
     assert got.shape == want.shape
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _spy_kernels(monkeypatch) -> dict:
+    """Counts of the ops/qconv calls that ist_int8 makes (on CPU tensors the
+    wrappers run their plain versions and count no launch)."""
+    calls = {"act_scale": 0, "quantize_act": 0, "qconv": 0, "qconv_int8_out": 0}
+    for name in ("act_scale", "quantize_act", "qconv"):
+        fn = getattr(QC, name)
+
+        def spy(*args, _fn=fn, _name=name, **kw):
+            calls[_name] += 1
+            if _name == "qconv" and kw.get("out_scale", args[9] if len(args) > 9 else None) \
+                    is not None:
+                calls["qconv_int8_out"] += 1
+            return _fn(*args, **kw)
+
+        monkeypatch.setattr(QC, name, spy)
+    return calls
+
+
+def test_static_forward_fuses_each_block_conv1(monkeypatch):
+    """The static forward asks each of the tiny IST's 8 blocks' conv1 for
+    int8 output (21 qconv, 13 quantize_act, no act_scale); the dynamic
+    forward and the calibration pass ask for none (21 of each, calibration
+    no act_scale only where scales are static)."""
+    _, _, net = _nets(7)
+    x = T(_images(7, 2))
+    tq = T8.prepare_int8_ist_params(net)
+    calls = _spy_kernels(monkeypatch)
+    with torch.no_grad():
+        dyn = T8.ist_features_int8(tq, x)
+        assert calls == {"act_scale": 21, "quantize_act": 21, "qconv": 21, "qconv_int8_out": 0}
+        absmaxes = T8.ist_act_absmax(tq, x)
+        assert calls["qconv_int8_out"] == 0 and calls["quantize_act"] == 42
+        ts = T8.attach_static_act_scales(tq, absmaxes)
+        for k in calls:
+            calls[k] = 0
+        sta = T8.ist_features_int8(ts, x)
+    assert calls == {"act_scale": 0, "quantize_act": 13, "qconv": 21, "qconv_int8_out": 8}
+    # at B = 2 the calibration scales are not the per-image ones: the
+    # outputs differ, but both are the features' shape and finite
+    assert sta.shape == dyn.shape and torch.isfinite(sta).all()
 
 
 def test_dynamic_features_match_jax_ref():
