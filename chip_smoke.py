@@ -18,11 +18,17 @@ inputs, twice: with the bf16 AE (`serving_quant=off`) and with the int8 AE
    spills per kernel (any spill fails the run);
 2. the fused matching kernels against their plain PyTorch version on
    planted worlds, at P=16 and at the serving shape B=32, V=162, P=256,
-   C=1024: the wgmma kernel on a bf16 store and the CUDA-core kernel on an
-   f32 store (idx / valid / top-k ids exact, scores within MATCH_ATOL),
-   with both times from CUDA events, and at the serving shape the bound and
-   a partial yardstick (one batched matmul of the pre-gathered views: the
-   similarity alone);
+   C=1024: the bf16 wgmma kernel on a bf16 store and the TF32 wgmma kernel
+   with its three-product split on an f32 store (idx / valid / top-k ids
+   exact, scores within MATCH_ATOL), with both times from CUDA events, and
+   at the serving shape the bound (the f32 store's at the TF32 rate counted
+   three times, the CUDA cores' beside it) and a partial yardstick (one
+   batched matmul of the pre-gathered views, f32 at "highest" precision:
+   the similarity alone; on the f32 store also the same matmul in TF32, one
+   product that is not f32-grade, as the card's TF32 rate); on the f32
+   store also each side's largest gap
+   from an f64 product of the same inputs, and the split kernel alone
+   (bit-equal to split_tf32, its time, plain time and bound);
 3. the int8 kernels (ops/qmm.py) against their plain versions at the ViT-L
    serving shapes, T = 32 x 257 tokens: qmm in its four (LN, residual) forms
    at K=1024, N=3072 and at the main path's proj and fc2 shapes; the GEMM's
@@ -55,8 +61,10 @@ inputs, twice: with the bf16 AE (`serving_quant=off`) and with the int8 AE
    crops (> 0.99, the JAX package's gate), and the AE forward's device time
    in both precisions at B = 4, 8, 16, 32;
 9. the whole coarse forward at B=32 (a request of 32 detections through
-   prepare_batch and the estimator) on both paths, on the host clock around
-   work that ends in synchronize, with its stages from CUDA events;
+   prepare_batch and the estimator) on both paths and on the bf16 path with
+   its store cast to f32 (the f32 matching kernel; launches counted per
+   path), on the host clock around work that ends in synchronize, with its
+   stages from CUDA events;
 10. the CLI on the card: a BOP dataset written with the port's PNG and RLE
    encoders, rows filtered as real PNG writers filter them (per row the
    least-cost filter, encode_png's "adaptive"): 2 objects x 162 templates,
@@ -70,8 +78,11 @@ inputs, twice: with the bf16 AE (`serving_quant=off`) and with the int8 AE
    estimator called directly; one [cli] line per run (onboarding s/object,
    per-image latency p50 / p90, images/s, detections/s, the host's decoding
    share and ms per image), the spread over each AE's three runs and the
-   int8 / bf16 ratios per pair of runs; the PNG decode time of one 480x640
-   image per row filter.
+   int8 / bf16 ratios per pair of runs; then one more run with the bf16 AE
+   from the cache with model.feature_dtype=f32 (an f32 store: the f32
+   matching kernel and its split, one each a forward, no bf16 matching),
+   its [cli] line beside the bf16 cached runs; the PNG decode time of one
+   480x640 image per row filter.
 11. refinement on the card, in phase 10's dataset: a closed mesh per object
    (a displaced 100 x 100-segment sphere, 19,800 faces, about 150 mm across,
    vertex colours, binary PLY in datasets/tudl/models), and beside the
@@ -324,7 +335,7 @@ CLI_POSE_TOL = dict(rtol=1e-4, atol=1e-3)
 # least time of a kernel is the larger of its operations over the peak of
 # their type and its bytes (each input read once, each output written once)
 # over the memory rate
-PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "tf32": 495e12, "f32": 67e12}
 PEAK_BYTES = 3.35e12
 
 
@@ -415,7 +426,8 @@ def ptxas_report(log_text: str) -> dict:
     for ln in log_text.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
-            k = re.search(r"(match_bf16|match_f32|gemm|quant_rows|attention|prep|face|big|resolve"
+            k = re.search(r"(match_bf16|match_f32|split_tf32|gemm|quant_rows|attention|prep|face"
+                          r"|big|resolve"
                           r"|act_absmax|quantize|qconv)_kernel(I\w*?E)?", m.group(1))
             name = k.group(1) + (k.group(2) or "") if k else m.group(1)
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
@@ -474,9 +486,11 @@ def compare_matcher(args, npat: int, k: int = 5, exact: bool = True) -> dict:
 
 
 def matcher_bound(args, dtype) -> dict:
-    """Bound of one matching launch: 2 B V P^2 C operations in the
-    features' type (bf16 tensor cores, or f32 CUDA cores), and the bytes of
-    the labelled objects' views, the query, the masks, labels and outputs."""
+    """Bound of one matching launch: 2 B V P^2 C products in the features'
+    type (bf16 tensor cores; an f32 store's f32-grade products as three TF32
+    products each, with the bound of the same work in f32 on the CUDA cores
+    beside it), and the bytes of the labelled objects' views, the query, the
+    masks, labels and outputs."""
     tar, store = args[0], args[1]
     B, P, C = tar.shape
     V = store.shape[1]
@@ -484,12 +498,39 @@ def matcher_bound(args, dtype) -> dict:
     esz = tar.element_size()
     nbytes = (objs * V * P * C + B * P * C) * esz + (objs * V * P + B * P + B) * 4 \
         + (B * V + 3 * B * V * P) * 4
-    return bound(2.0 * B * V * P * P * C, "bf16" if dtype == torch.bfloat16 else "f32", nbytes)
+    ops = 2.0 * B * V * P * P * C
+    if dtype == torch.bfloat16:
+        return bound(ops, "bf16", nbytes)
+    return dict(bound(3 * ops, "tf32", nbytes),
+                bound_ms_cuda_cores=bound(ops, "f32", nbytes)["bound_ms"])
+
+
+def split_record(tar) -> dict:
+    """The split kernel alone on the serving query: bit-equal to split_tf32
+    on the card, its time and the plain version's (CUDA events), and its
+    bound (the query read once, hi and lo written once)."""
+    got = fm.split_query(tar)
+    hi, lo = fm.split_tf32(tar)
+    Cp = got.shape[-1]
+    C = tar.shape[-1]
+    torch.cuda.synchronize()
+    same = torch.equal(got[0, ..., :C].view(torch.int32), hi.view(torch.int32)) and \
+        torch.equal(got[1, ..., :C].view(torch.int32), lo.view(torch.int32)) and \
+        not bool(got[..., C:].any())
+    check(same, "the split kernel differs from split_tf32")
+    rec = dict(max_abs_err=0.0, ms=cuda_ms(lambda: fm.split_query(tar)),
+               plain_ms=cuda_ms(lambda: fm.split_tf32(tar)),
+               **bound(0.0, "f32", tar.numel() * 4 + 2 * tar.numel() // C * Cp * 4))
+    log("split_tf32", shape=repr(tuple(tar.shape)),
+        **{k: (f"{v:.4g}" if isinstance(v, float) else v) for k, v in rec.items()})
+    return rec
 
 
 def phase_kernel_vs_plain(dev) -> dict:
     """Planted worlds at P=16 and at the serving shape, f32 and bf16 stores."""
     record = {}
+    check(torch.get_float32_matmul_precision() == "highest"
+          and not torch.backends.cuda.matmul.allow_tf32, "f32 matmuls are not full f32")
     for name, shape in (("P16", dict(B=4, O=2, V=6, npat=4, C=64)),
                         ("serving", dict(B=32, O=2, V=NUM_VIEWS, npat=16, C=1024))):
         tar, store, tmask, smask, labels = planted_world(SEED, **shape)
@@ -511,7 +552,23 @@ def phase_kernel_vs_plain(dev) -> dict:
                 src = args[1][args[4].long()].reshape(B, -1, C)
                 tar_t = args[0].transpose(1, 2)
                 extra["partial_library_ms"] = cuda_ms(lambda: torch.bmm(src, tar_t))
+                if dtype == torch.float32:  # the card's TF32 rate, one product (not f32-grade)
+                    torch.backends.cuda.matmul.allow_tf32 = True
+                    try:
+                        extra["partial_library_tf32_ms"] = cuda_ms(lambda: torch.bmm(src, tar_t))
+                    finally:
+                        torch.backends.cuda.matmul.allow_tf32 = False
                 del src
+            if dtype == torch.float32:  # each side's largest gap from an f64 product
+                kw = dict(MATCH, num_patches=shape["npat"])
+                ref = fm.match_scores_plain(*args, products="f64", **kw)
+                for side, out in (("kernel", fm.fused_match_scores(*args, **kw)),
+                                  ("plain", fm.match_scores_plain(*args, **kw))):
+                    extra[f"{side}_gap_f64"] = max(float((out[i].double() - ref[i]).abs().max())
+                                                   for i in (0, 2))
+                del ref, out
+                if name == "serving":
+                    record["split_tf32"] = split_record(args[0])
             log("kernel_vs_plain", world=tag, kernel_ms=f"{ms:.4f}",
                 plain_ms=f"{plain_ms:.4f}", **stats, **extra)
             record[tag] = dict(ms=ms, plain_ms=plain_ms, **stats, **extra)
@@ -736,8 +793,8 @@ def phase_int8_kernels(dev, qrec) -> dict:
 
 
 def reset_counts() -> None:
-    for fn in (fm.fused_match_scores, Q.qmm, Q.qmm_mlp, Q.qmm_attn_block, Q._quantize_rows,
-               Q._attention, QC.act_scale, QC.quantize_act, QC.qconv):
+    for fn in (fm.fused_match_scores, fm.split_query, Q.qmm, Q.qmm_mlp, Q.qmm_attn_block,
+               Q._quantize_rows, Q._attention, QC.act_scale, QC.quantize_act, QC.qconv):
         fn.launches = 0
     for c in (fm.fused_match_scores.launches_by_dtype, Q._gemm.launches):
         for key in c:
@@ -751,7 +808,7 @@ def counts() -> dict:
     return dict(fused_matching=fm.fused_match_scores.launches, qmm=Q.qmm.launches,
                 qmm_mlp=Q.qmm_mlp.launches, qmm_attn_block=Q.qmm_attn_block.launches,
                 match_bf16=by_dtype[torch.bfloat16], match_f32=by_dtype[torch.float32],
-                row_prologue=Q._quantize_rows.launches, attention_core=Q._attention.launches,
+                split_tf32=fm.split_query.launches, row_prologue=Q._quantize_rows.launches, attention_core=Q._attention.launches,
                 gemm_f32=gemm[Q._MODE_F32], gemm_residual=gemm[Q._MODE_RES],
                 gemm_gelu=gemm[Q._MODE_GELU], gemm_bf16=gemm[Q._MODE_BF16],
                 qconv=QC.qconv.launches, quantize=QC.quantize_act.launches,
@@ -759,9 +816,11 @@ def counts() -> dict:
 
 
 def expected_counts(forwards: int, depth: int = 0, int8_ae_calls: int = 0,
-                    int8_ist_calls: int = 0, dynamic_ist_calls: int = 0) -> dict:
+                    int8_ist_calls: int = 0, dynamic_ist_calls: int = 0,
+                    f32_store: bool = False) -> dict:
     """Launches of every kernel after `forwards` coarse forwards on a bf16
-    store, `int8_ae_calls` of them (and of onboarding's AE calls) through
+    store (an f32 one with f32_store: the f32 matching kernel and its split
+    instead of the bf16 kernel), `int8_ae_calls` of them (and of onboarding's AE calls) through
     the int8 AE of `depth` blocks, `int8_ist_calls` IST calls through the
     int8 IST (IST_CONVS_PER_FORWARD convolutions each), `dynamic_ist_calls`
     of them with per-image scales (calibration's forward, on static ones);
@@ -769,7 +828,8 @@ def expected_counts(forwards: int, depth: int = 0, int8_ae_calls: int = 0,
     block's conv1 writes conv2's codes)."""
     n = int8_ae_calls
     return dict(fused_matching=forwards, qmm=2 * depth * n, qmm_mlp=depth * n,
-                qmm_attn_block=depth * n, match_bf16=forwards, match_f32=0,
+                qmm_attn_block=depth * n, match_bf16=0 if f32_store else forwards,
+                match_f32=forwards if f32_store else 0, split_tf32=forwards if f32_store else 0,
                 row_prologue=4 * depth * n, attention_core=depth * n, gemm_f32=0,
                 gemm_residual=2 * depth * n, gemm_gelu=depth * n, gemm_bf16=depth * n,
                 qconv=IST_CONVS_PER_FORWARD * int8_ist_calls,
@@ -932,13 +992,16 @@ def phase_forward_b32(paths, scene, dev) -> dict:
     """A request of 32 detections (a scene's detections repeated) through
     prepare_batch and the estimator on each path: the whole forward on the
     host clock around work that ends in synchronize (what a caller waits),
-    and its stages from CUDA events."""
+    and its stages from CUDA events. The matching launches of each path's 7
+    forwards are counted: the bf16 kernel on a bf16 store, the f32 kernel
+    and its split on an f32 one."""
     rgb, masks, boxes, labels, K, _ = scene
     take = np.arange(32) % len(labels)
     req = (rgb, masks[take], boxes[take], labels[take], K)
     out = {}
     for tag, est, store in paths:
         run = lambda: est(store, prepare_batch(*req, dev))
+        reset_counts()
         for _ in range(2):
             run()
         torch.cuda.synchronize()
@@ -948,6 +1011,11 @@ def phase_forward_b32(paths, scene, dev) -> dict:
             run()
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
+        f32 = store.ae_features.dtype == torch.float32
+        got = {k: counts()[k] for k in ("match_bf16", "match_f32", "split_tf32")}
+        want = dict(match_bf16=0 if f32 else 7, match_f32=7 if f32 else 0,
+                    split_tf32=7 if f32 else 0)
+        check(got == want, f"forward_b32 {tag}: matching launches {got}, expected {want}")
         batch = prepare_batch(*req, dev)
         check(batch.crops.shape[0] == 32, "B=32 request")
         with torch.inference_mode():
@@ -964,7 +1032,8 @@ def phase_forward_b32(paths, scene, dev) -> dict:
         stages["rest_ms"] = whole - sum(v for k, v in stages.items() if k != "forward_device_ms")
         out[tag] = dict(whole_ms=whole, whole_ms_min=min(times), crops_per_s=32e3 / whole,
                         **stages)
-        log("forward_b32", ae=tag, **{k: f"{v:.3f}" for k, v in out[tag].items()})
+        log("forward_b32", ae=tag, **{k: f"{v:.3f}" for k, v in out[tag].items()},
+            store=str(store.ae_features.dtype).split(".")[-1], launches=repr(got).replace(" ", ""))
     return out
 
 
@@ -1131,6 +1200,9 @@ CLI_RUNS = (("bf16", "bf16", False), ("int8", "int8", False),
             ("int8_cached", "int8", True), ("bf16_cached", "bf16", True),
             ("bf16_cached2", "bf16", True), ("int8_cached2", "int8", True))
 CLI_PAIRS = (("int8", "bf16"), ("int8_cached", "bf16_cached"), ("int8_cached2", "bf16_cached2"))
+# and after them the f32 store: the bf16 AE from the cache with
+# model.feature_dtype=f32
+CLI_F32_RUN = "bf16_f32store_cached"
 
 
 def phase_cli(templates, dev, smi, then=None) -> dict:
@@ -1148,6 +1220,24 @@ def phase_cli(templates, dev, smi, then=None) -> dict:
     log("png", shape="480x640", **{k: f"{v:.4g}" for k, v in record["png"].items()})
     quant = {"bf16": "model.serving_quant=off", "int8": "model.serving_quant=int8"}
     runs, image_ms, csvs = {}, {}, {}
+
+    def record_run(tag, runner, paths, launched, **stats):
+        image_ms[tag] = np.array([npz_time_ms(osp.join(osp.dirname(paths[0]), f"{i:06d}.npz"))
+                                  for i in range(CLI_IMAGES)])
+        t = runner.timing
+        runs[tag] = dict(
+            onboard_s_per_object=t["onboard_s"] / t["objects"],
+            image_ms_p50=float(np.percentile(image_ms[tag], 50)),
+            image_ms_p90=float(np.percentile(image_ms[tag], 90)),
+            images_per_s=t["images"] / t["run_s"], detections_per_s=t["detections"] / t["run_s"],
+            decode_share=t["decode_s"] / t["run_s"],
+            decode_ms_per_image=t["decode_s"] / t["images"] * 1e3, run_s=t["run_s"],
+            images=t["images"], detections=t["detections"], forwards=t["forwards"], **stats,
+            launches=launched)
+        log("cli", run=tag, **{k: (f"{v:.4g}" if isinstance(v, float) else v)
+                               for k, v in runs[tag].items() if k != "launches"},
+            card=repr(smi))
+
     with tempfile.TemporaryDirectory(prefix="gigapose_cli_") as root:
         t0 = time.perf_counter()
         info = write_bop_dataset(root, templates, np.random.default_rng(SEED + 11))
@@ -1177,23 +1267,22 @@ def phase_cli(templates, dev, smi, then=None) -> dict:
             else:
                 stats = check_cli_outputs(runner, paths, info, root, dev, tag)
             csvs[tag] = paths
-            image_ms[tag] = np.array([npz_time_ms(osp.join(osp.dirname(paths[0]), f"{i:06d}.npz"))
-                                      for i in range(CLI_IMAGES)])
-            t = runner.timing
-            runs[tag] = dict(
-                onboard_s_per_object=t["onboard_s"] / t["objects"],
-                image_ms_p50=float(np.percentile(image_ms[tag], 50)),
-                image_ms_p90=float(np.percentile(image_ms[tag], 90)),
-                images_per_s=t["images"] / t["run_s"], detections_per_s=t["detections"] / t["run_s"],
-                decode_share=t["decode_s"] / t["run_s"],
-                decode_ms_per_image=t["decode_s"] / t["images"] * 1e3, run_s=t["run_s"],
-                images=t["images"], detections=t["detections"], forwards=t["forwards"], **stats,
-                launches=launched)
-            log("cli", run=tag, **{k: (f"{v:.4g}" if isinstance(v, float) else v)
-                                   for k, v in runs[tag].items() if k != "launches"},
-                card=repr(smi))
+            record_run(tag, runner, paths, launched, **stats)
             del runner
             torch.cuda.empty_cache()
+        # the f32 store: the bf16 AE's onboarding cache read back as f32
+        runner, launched, paths = cli_run(root, [quant["bf16"], "model.feature_dtype=f32"],
+                                          CLI_F32_RUN)
+        check(runner.timing["onboard_cached"], f"{CLI_F32_RUN}: onboarding cache")
+        check(runner.store.ae_features.dtype == torch.float32,
+              f"{CLI_F32_RUN}: store {runner.store.ae_features.dtype}")
+        check(runner.timing["forwards"] == forwards, f"{CLI_F32_RUN}: forwards")
+        want = expected_counts(forwards, f32_store=True)
+        check(launched == want, f"{CLI_F32_RUN}: launches {launched}, expected {want}")
+        record_run(CLI_F32_RUN, runner, paths, launched, same_csv_as_bf16=all(
+            csv_rows(a) == csv_rows(b) for a, b in zip(csvs["bf16"], paths)))
+        del runner
+        torch.cuda.empty_cache()
         if then is not None:
             record["then"] = then(root, csvs[CLI_RUNS[-1][0]][1], info)
     record["runs"], record["spread"] = runs, {}
@@ -1212,6 +1301,13 @@ def phase_cli(templates, dev, smi, then=None) -> dict:
     for r in record["int8_over_bf16"]:
         log("cli_int8_over_bf16", **{k: (f"{v:.4g}" if isinstance(v, float) else v)
                                      for k, v in r.items()})
+    cached = [runs[tag]["image_ms_p50"] for tag, p, c in CLI_RUNS if p == "bf16" and c]
+    record["f32store"] = dict(image_ms_p50=runs[CLI_F32_RUN]["image_ms_p50"],
+                              bf16_cached_p50=cached,
+                              over_bf16_cached=runs[CLI_F32_RUN]["image_ms_p50"] / np.mean(cached))
+    log("cli_f32store", **{k: (f"{v:.4g}" if isinstance(v, float) else
+                               "/".join(f"{x:.4g}" for x in v) if isinstance(v, list) else v)
+                           for k, v in record["f32store"].items()})
     return record
 
 
@@ -3248,24 +3344,35 @@ def kernel_records(record, qrec, krec, main_stats, bf16_counts, int8_counts, for
     kernels = []
     cli_runs = {run: r["launches"] for run, r in cli_rec["runs"].items()}
 
-    def add(name, source, replaces, launches, key, **fields):
+    def add(name, source, replaces, launches, key, fwd=forwards, **fields):
         entry = dict(name=name, route="cuda", source=f"gigapose_tpu_torch/csrc/{source}",
                      replaces=replaces, launches=launches,
-                     launches_per_forward=launches / forwards, library_ms=None,
+                     launches_per_forward=launches / fwd, library_ms=None,
                      launches_cli={run: n[key] for run, n in cli_runs.items()})
         entry.update(fields)
         entry["bound_share"] = entry["bound_ms"] / entry["ms"]
         kernels.append(entry)
 
     pallas, qmm_py = "gigapose_tpu/ops/pallas_matching.py:69", "gigapose_tpu/ops/qmm.py"
-    for dt, key in (("bfloat16", "match_bf16"), ("float32", "match_f32")):
-        r = record[f"serving_{dt}"]
-        err = max(r["max_abs_err"], main_stats["max_abs_err"]) if dt == "bfloat16" \
-            else r["max_abs_err"]
-        add(f"fused_matching_{dt}", "fused_matching.cu", pallas, bf16_counts[key], key,
-            on_main_path=dt == "bfloat16", max_abs_err=err, ms=r["ms"], plain_ms=r["plain_ms"],
-            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            partial_library_ms=r["partial_library_ms"])
+    r = record["serving_bfloat16"]
+    add("fused_matching_bfloat16", "fused_matching.cu", pallas, bf16_counts["match_bf16"],
+        "match_bf16", on_main_path=True,
+        max_abs_err=max(r["max_abs_err"], main_stats["max_abs_err"]), ms=r["ms"],
+        plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+        partial_library_ms=r["partial_library_ms"])
+    # the f32 store's kernels: launches from phase 10's model.feature_dtype=f32 run
+    f32_run = cli_rec["runs"][CLI_F32_RUN]
+    r = record["serving_float32"]
+    add("fused_matching_float32", "fused_matching.cu", pallas, f32_run["launches"]["match_f32"],
+        "match_f32", fwd=f32_run["forwards"], on_main_path=False,
+        path="model.feature_dtype=f32", max_abs_err=r["max_abs_err"], ms=r["ms"],
+        plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+        bound_ms_cuda_cores=r["bound_ms_cuda_cores"], kernel_gap_f64=r["kernel_gap_f64"],
+        plain_gap_f64=r["plain_gap_f64"], partial_library_ms=r["partial_library_ms"],
+        partial_library_tf32_ms=r["partial_library_tf32_ms"])
+    add("split_tf32", "fused_matching.cu", pallas, f32_run["launches"]["split_tf32"],
+        "split_tf32", fwd=f32_run["forwards"], on_main_path=False,
+        path="model.feature_dtype=f32", **record["split_tf32"])
     a = krec["attention"]
     add("attention_core", "qmm.cu", f"{qmm_py}:235", int8_counts["attention_core"],
         "attention_core", on_main_path=True, **a)
@@ -3399,7 +3506,10 @@ def main() -> int:
     # 9. the whole forward at B=32 on both paths
     phase_int8_wiring(est8, preds8[0][1])
     phase_int8_vs_bf16(est, est8, preds8[0][1], dev)
-    phase_forward_b32([("bf16", est, store), ("int8", est8, store8)], scenes[2], dev)
+    store32 = dataclasses.replace(store, ae_features=store.ae_features.float())
+    phase_forward_b32([("bf16", est, store), ("int8", est8, store8),
+                       ("bf16_f32store", est, store32)], scenes[2], dev)
+    del store32
 
     # 15.1-15.3: the int8 IST at B=32: its kernels at every convolution shape,
     # the whole int8 IST on phase 9's request, the forward with the int8 AE

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: wgmma
 // shared-memory descriptors and int8 products, cp.async copies, mbarriers,
 // TMA tile loads, named barriers, and on the host the tensor maps of K-major
-// int8 operands and the launch settings of persistent cluster grids. Included by
+// int8 and f32 operands and the launch settings of persistent cluster grids. Included by
 // fused_matching.cu, qmm.cu and qconv.cu; kernels/build.py hashes this
 // header into every library's name, so an edit here rebuilds them all.
 #pragma once
@@ -17,7 +17,7 @@ typedef unsigned long long u64;
 // A K-major wgmma operand in the 128-byte swizzle: rows of 128 bytes whose
 // 16-byte chunk c lies at chunk c ^ (row % 8), 8-row groups 1024 bytes apart
 // (SBO), the tile 1024-byte aligned. Stepping the start address 32 bytes
-// moves one k-step (16 bf16 or 32 int8 values) along the row.
+// moves one k-step (16 bf16, 32 int8 or 8 tf32 values) along the row.
 __device__ __forceinline__ u64 smem_desc(uint32_t addr) {
   return (u64)((addr & 0x3FFFF) >> 4) | ((u64)(16 >> 4) << 16) | ((u64)(1024 >> 4) << 32) |
          ((u64)1 << 62);
@@ -203,6 +203,16 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map, uint3
       : "memory");
 }
 
+// the box at (c0, c1, c2), innermost first, of a 3-D tensor map
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const void* map, uint32_t bar, int c0,
+                                            int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<u64>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // the box at (c0, c1, c2, c3), innermost first, of a 4-D tensor map
 __device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map, uint32_t bar, int c0,
                                             int c1, int c2, int c3) {
@@ -305,6 +315,24 @@ inline bool encode_kmajor_s8(CUtensorMap* map, const void* p, int rows, int K, i
   const cuuint32_t step[2] = {1u, 1u};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(p), dims, strides, box, step,
             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// a (mats, rows, K) K-contiguous f32 array as boxes of box_rows x 32 floats
+// (128 bytes) of one matrix, in the 128-byte swizzle; rows past `rows` and
+// channels past K read as zeros, so a box never reaches into the next
+// matrix; false if it cannot be encoded (K not a multiple of 4, alignment,
+// driver)
+inline bool encode_rows_f32(CUtensorMap* map, const void* p, int K, int rows, int mats,
+                            int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)K, (cuuint64_t)rows, (cuuint64_t)mats};
+  const cuuint64_t strides[2] = {(cuuint64_t)K * 4, (cuuint64_t)K * 4 * rows};
+  const cuuint32_t box[3] = {32u, (cuuint32_t)box_rows, 1u};
+  const cuuint32_t step[3] = {1u, 1u, 1u};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(p), dims, strides, box,
+            step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

@@ -1,5 +1,5 @@
-"""Fused template matching: wrapper of the CUDA kernel in
-csrc/fused_matching.cu, and its plain PyTorch version.
+"""Fused template matching: wrapper of the CUDA kernels in
+csrc/fused_matching.cu, and their plain PyTorch versions.
 
 Counterpart of gigapose_tpu/ops/pallas_matching.py (`pallas_match_scores`,
 `pallas_match_templates`): per (detection b, view v of object labels[b]),
@@ -15,11 +15,17 @@ score_t2s (B, V, P) f32, valid (B, V, P) i32.
 
 Dispatch is by device and nothing else: CUDA tensors launch a kernel (or
 raise on what it does not take), CPU tensors take `match_scores_plain`. On
-the card the store's dtype picks one of two hand-written kernels: a bf16
-store the tensor-core (wgmma) kernel, which takes C a multiple of 8; an f32
-store the CUDA-core kernel, which keeps full f32 inputs.
-`fused_match_scores.launches` counts kernel launches, and
-`fused_match_scores.launches_by_dtype` counts them per kernel.
+the card the store's dtype picks one of two hand-written kernels, both on
+the tensor cores (wgmma): a bf16 store the bf16 kernel, which takes C a
+multiple of 8; an f32 store the TF32 kernel with a three-product split
+(hi . hi + hi . lo + lo . hi, "3xTF32"), which keeps f32-grade scores
+(about 7e-7 from the exact product on unit rows) and takes any C. Before it
+`split_query` writes the query's tf32 hi and lo once per launch
+(`split_tf32` is that rounding in torch bit operations), and
+`match_f32_route` picks how the kernel loads the template rows.
+`fused_match_scores.launches` counts matching launches,
+`fused_match_scores.launches_by_dtype` counts them per kernel and
+`split_query.launches` counts the split kernel's.
 """
 
 from __future__ import annotations
@@ -29,14 +35,78 @@ import functools
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 from gigapose_tpu_torch.ops.matching import MatchResult, select_top_k
 
-# both kernels hold all query patches of a detection at once: a 64-row strip
-# of MAX_PATCHES columns in shared memory (f32) or a 64 x 256 wgmma
-# accumulator per warpgroup (bf16) (csrc/fused_matching.cu)
+# both kernels hold all query patches of a detection at once: a 64 x 256
+# wgmma accumulator per warpgroup (csrc/fused_matching.cu)
 MAX_PATCHES = 256
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_F32_ROUTES = {"tma": 0, "cp_async": 1}
+_TF32_MASK = -(1 << 13)  # the 13 low mantissa bits that tf32 drops, as an int32 mask
+
+
+def split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """f32 x -> (hi, lo), x = hi + lo up to 2^-22 |x|, as the f32 kernel splits
+    its operands: hi = tf32(x), lo = tf32(x - hi) (x - hi is exact in f32),
+    where tf32 rounds to 10 mantissa bits, to nearest with ties away from
+    zero (cvt.rna.tf32.f32), and leaves the 13 low bits zero."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"split_tf32 takes float32, got {x.dtype}")
+
+    def tf32(v: torch.Tensor) -> torch.Tensor:
+        # adding half of the dropped bits' unit to the magnitude bits rounds
+        # the magnitude half up: to nearest, ties away from zero
+        return ((v.view(torch.int32) + (1 << 12)) & _TF32_MASK).view(torch.float32)
+
+    hi = tf32(x)
+    return hi, tf32(x - hi)
+
+
+def split_width(C: int) -> int:
+    """Channels of a row of split_query's output: C rounded up to 4, so that
+    its rows are 16 bytes apart, as the kernel's TMA loads need."""
+    return -(-C // 4) * 4
+
+
+def match_f32_route(C: int) -> str:
+    """How the f32 kernel loads the store's template rows: "tma" where C is
+    a multiple of 4 (rows 16 bytes apart, as TMA needs: every AE width,
+    384 / 768 / 1024 / 1536), else "cp_async" (4-byte copies with zero
+    fill). The query always comes through TMA from split_query's rows. The
+    decision is made here alone; the C entry point checks only that TMA can
+    take what it is given."""
+    return "tma" if C % 4 == 0 else "cp_async"
+
+
+def split_query(x: torch.Tensor) -> torch.Tensor:
+    """(..., C) f32 -> (2, ..., split_width(C)) f32: split_tf32's hi, then lo,
+    channels past C zero. A CUDA tensor launches csrc/fused_matching.cu's
+    split kernel (counted in split_query.launches), a CPU tensor takes
+    split_tf32; anything else raises."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"split_query takes float32, got {x.dtype}")
+    C = x.shape[-1]
+    Cp = split_width(C)
+    if x.device.type == "cpu":
+        hi, lo = split_tf32(x)
+        return F.pad(torch.stack([hi, lo]), (0, Cp - C))
+    if x.device.type != "cuda":
+        raise ValueError(f"split_query runs on cuda or cpu tensors, not {x.device}")
+    if not x.is_contiguous() or x.numel() == 0:
+        raise ValueError("split_query takes a contiguous, non-empty tensor")
+    out = torch.empty((2, *x.shape[:-1], Cp), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = _entry_points()[1](x.data_ptr(), out.data_ptr(), x.numel() // C, C, Cp,
+                                 torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"tf32 split kernel launch failed: CUDA error {err}")
+    split_query.launches += 1
+    return out
+
+
+split_query.launches = 0
 
 
 def _check_threshold(sim_threshold: float) -> None:
@@ -56,17 +126,29 @@ def match_scores_plain(
     sim_threshold: float = 0.5,
     patch_threshold: int = 3,
     num_patches: int = 16,
+    products: str = "f32",
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the kernel: same four outputs, same multiply
-    order, f32 similarity from inputs of any float dtype, first-index argmax."""
+    """Plain PyTorch version of the kernels: same four outputs, same multiply
+    order, first-index argmax, the similarity from inputs of any float
+    dtype. products: "f32" (the f32 product), "3xtf32" (the f32 kernel's
+    three products of split_tf32's parts, summed in f32), or "f64" (the
+    exact reference: similarity and scores in f64)."""
     _check_threshold(sim_threshold)
+    if products not in ("f32", "3xtf32", "f64"):
+        raise ValueError(f"products must be f32, 3xtf32 or f64, got {products!r}")
+    dt = torch.float64 if products == "f64" else torch.float32
     P = tar_feat.shape[1]
     lab = labels.to(torch.int64)
-    src = store_feats[lab].to(torch.float32)  # (B, V, P, C)
-    src_m = store_masks[lab].to(torch.float32)  # (B, V, P)
-    tar_m = tar_mask.to(torch.float32)
+    src = store_feats[lab].to(dt)  # (B, V, P, C)
+    src_m = store_masks[lab].to(dt)  # (B, V, P)
+    tar_m = tar_mask.to(dt)
+    tar_t = tar_feat.to(dt)[:, None].transpose(-1, -2)
     # sim[b, v, s, t] = <src[s], tar[t]>: template patch s, query patch t
-    sim = torch.matmul(src, tar_feat.to(torch.float32)[:, None].transpose(-1, -2))
+    if products == "3xtf32":
+        (s_hi, s_lo), (t_hi, t_lo) = split_tf32(src), split_tf32(tar_t)
+        sim = (torch.matmul(s_hi, t_hi) + torch.matmul(s_hi, t_lo)) + torch.matmul(s_lo, t_hi)
+    else:
+        sim = torch.matmul(src, tar_t)
     sim = sim * src_m[..., :, None] * tar_m[:, None, None, :]
     simz = torch.where(sim < sim_threshold, torch.zeros_like(sim), sim)
 
@@ -98,19 +180,30 @@ def match_scores_plain(
 
 
 @functools.cache
-def _entry_point():
-    """gp_fused_match of the built library, with its C signature declared."""
+def _entry_points():
+    """gp_fused_match and gp_split_tf32 of the built library."""
     from gigapose_tpu_torch.kernels.build import load_library
 
-    fn = load_library("fused_matching").gp_fused_match
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    return fn
+    return declare(load_library("fused_matching"))
+
+
+def declare(lib: ctypes.CDLL):
+    """(gp_fused_match, gp_split_tf32) of a library built from
+    csrc/fused_matching.cu, with their C signatures declared."""
+    match, split = lib.gp_fused_match, lib.gp_split_tf32
+    match.restype = split.restype = ctypes.c_int
+    match.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p]
+    split.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    return match, split
 
 
 def _launch(tar_feat, store_feats, tar_mask, store_masks, labels,
-            sim_threshold, patch_threshold, num_patches):
+            sim_threshold, patch_threshold, num_patches, match_entry=None):
+    """The checks and the launch of fused_match_scores on CUDA tensors;
+    match_entry: gp_fused_match of another build of the source (a variant
+    of scripts/match_f32_variants.py; its launches are not counted)."""
     B, P, C = tar_feat.shape
     O, V = store_feats.shape[:2]
     dev = tar_feat.device
@@ -151,18 +244,24 @@ def _launch(tar_feat, store_feats, tar_mask, store_masks, labels,
     valid = torch.empty((B, V, P), dtype=torch.int32, device=dev)
     if B * V == 0:
         return sim_avg, idx, score, valid
-    fn = _entry_point()
+    split, route = None, 0
+    if tar_feat.dtype == torch.float32:  # the query's tf32 parts, once per launch
+        split = split_query(tar_feat)
+        route = _F32_ROUTES[match_f32_route(C)]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(
+        err = (match_entry or _entry_points()[0])(
             tar_feat.data_ptr(), store_feats.data_ptr(), tar_mask.data_ptr(),
             store_masks.data_ptr(), labels.data_ptr(),
             sim_avg.data_ptr(), idx.data_ptr(), score.data_ptr(), valid.data_ptr(),
             B, O, V, P, C, _DTYPE_CODES[tar_feat.dtype],
-            float(sim_threshold), int(patch_threshold), int(num_patches), stream,
+            float(sim_threshold), int(patch_threshold), int(num_patches),
+            None if split is None else split.data_ptr(), split_width(C), route, stream,
         )
     if err != 0:
         raise RuntimeError(f"fused matching kernel launch failed: CUDA error {err}")
+    if match_entry is not None:
+        return sim_avg, idx, score, valid
     fused_match_scores.launches += 1
     fused_match_scores.launches_by_dtype[tar_feat.dtype] += 1
     return sim_avg, idx, score, valid

@@ -6,10 +6,13 @@ runs on a machine with PyTorch and the CUDA toolkit only:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
-Both kernels are held here: a bf16 store runs the tensor-core (wgmma)
-kernel, an f32 store the CUDA-core kernel. idx_t2s / valid / top-k ids are
-exact; scores agree to atol 1e-4 (f32 sums of C exact products in another
-order). The planted worlds keep every
+Both kernels are held here: a bf16 store runs the bf16 wgmma kernel, an f32
+store the TF32 wgmma kernel with its three-product split (and the split
+kernel before it, bit-equal to split_tf32). idx_t2s / valid / top-k ids are
+exact; scores agree to atol 1e-4 (f32 sums in another order; the split
+moves a product by about 3 * 2^-22 of its size, and on unit rows a score by
+at most about 7e-7, which the f32 kernel's own gap from an f64 product,
+held to 1e-5 at C = 1024, checks). The planted worlds keep every
 non-planted similarity far below the threshold, so no near-tie can flip an
 argmax; exact 0.0 ties are the common case and must resolve to index 0.
 """
@@ -166,3 +169,57 @@ def test_bf16_wrapper_refusals(dev):
         fm.fused_match_scores(*odd, num_patches=4)
     # an f32 store takes any C
     _assert_same(_to(dev, _world(10, B=2, O=1, V=2, npat=4, C=36), torch.float32), 4)
+
+
+@pytest.mark.parametrize("labels", sorted(LABELS))
+@pytest.mark.parametrize("C", [64, 384, 1000, 1024])
+@pytest.mark.parametrize("npat", [4, 10, 16])  # P = 16, 100, 256
+def test_f32_kernel_shapes_and_labels(dev, npat, C, labels):
+    """The TF32 kernel at ragged P (< 256) and ragged C (not a multiple of
+    its 32-channel stage), with detections sharing views or not; every C
+    here takes the TMA route."""
+    assert fm.match_f32_route(C) == "tma"
+    B, O, lab = LABELS[labels]
+    world = _world(7, B=B, O=O, V=5, npat=npat, C=C, labels=lab)
+    _assert_same(_to(dev, world, torch.float32), npat)
+
+
+@pytest.mark.parametrize("C", [37, 1001])
+@pytest.mark.parametrize("npat", [4, 10, 16])
+def test_f32_kernel_cp_async_route(dev, npat, C):
+    """C not a multiple of 4: the template rows come through 4-byte cp.async
+    copies, the query through TMA from split_query's padded rows."""
+    assert fm.match_f32_route(C) == "cp_async"
+    world = _world(11, B=4, O=2, V=6, npat=npat, C=C)
+    _assert_same(_to(dev, world, torch.float32), npat)
+    _assert_same(_to(dev, world, torch.float32), npat, patch_threshold=0, sim_threshold=0.4)
+
+
+@pytest.mark.parametrize("C", [37, 384, 1024])
+def test_split_kernel_bit_equal(dev, C):
+    rng = np.random.default_rng(C)
+    x = rng.standard_normal((3, 100, C)) * 10.0 ** rng.uniform(-30, 30, (3, 100, C))
+    x[0, 0, :2] = [0.0, -0.0]
+    x = torch.as_tensor(x.astype(np.float32))
+    before = fm.split_query.launches
+    got = fm.split_query(x.to(dev))
+    assert fm.split_query.launches == before + 1
+    want = fm.split_query(x)  # the CPU tensor takes split_tf32
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+def test_f32_kernel_gap_from_f64(dev):
+    """At the serving width C = 1024, on unit rows, the 3xTF32 kernel's
+    scores lie within 1e-5 of an f64 product of the same inputs."""
+    world = _world(12, B=6, O=2, V=12, npat=16, C=1024)
+    args = _to(dev, world, torch.float32)
+    kw = dict(sim_threshold=0.5, patch_threshold=3, num_patches=16)
+    got = fm.fused_match_scores(*args, **kw)
+    want = fm.match_scores_plain(*args, products="f64", **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want[1]) and torch.equal(got[3], want[3])
+    assert int(want[3].sum()) > 100  # planted matches were scored
+    for g, w in ((got[0], want[0]), (got[2], want[2])):
+        assert float((g.double() - w).abs().max()) <= 1e-5

@@ -6,6 +6,12 @@ the port side runs the fused kernel's plain version (what the wrapper takes
 for CPU tensors) and its own match_templates. View ids, idx, valid and the
 -1-sentinel points are exact; scores agree to atol 1e-5 (f32 sums of up to
 P = 256 products taken in another order).
+
+The f32 CUDA kernel's numerics are held here before any card runs them:
+split_tf32 (its x = hi + lo split into tf32 parts) and the plain version
+with products="3xtf32" (its three products hi.hi + hi.lo + lo.hi, each
+exact, summed in f32) against the Pallas kernel; scores within the same
+1e-5 (the split moves a product by at most about 3 * 2^-22 of its size).
 """
 
 import jax
@@ -18,6 +24,7 @@ from gigapose_tpu.ops.matching import match_templates as j_match_templates
 from gigapose_tpu.ops.pallas_matching import pallas_match_scores, pallas_match_templates
 from gigapose_tpu_torch.ops import fused_matching as fm
 from gigapose_tpu_torch.ops.matching import match_templates as t_match_templates
+from gigapose_tpu_torch.ops.matching import select_top_k
 from gigapose_tpu_torch.ops.matching import top_k_stable
 
 T = torch.as_tensor
@@ -140,3 +147,73 @@ def test_wrapper_contract():
     before = fm.fused_match_scores.launches
     fm.fused_match_scores(*args)
     assert fm.fused_match_scores.launches == before
+
+
+# f32 inputs for split_tf32: unit normals at several scales, and normals
+# spread over 60 binades; zeros of both signs in each
+SPLIT_SCALES = {"unit": 1.0, "large": 1e30, "small": 1e-30, "spread": None}
+
+
+@pytest.mark.parametrize("scale", sorted(SPLIT_SCALES))
+def test_split_tf32_parts(scale):
+    rng = np.random.default_rng(21)
+    x = rng.standard_normal(8192)
+    x *= 10.0 ** rng.uniform(-30, 30, x.shape) if SPLIT_SCALES[scale] is None else SPLIT_SCALES[scale]
+    x = np.concatenate([x, [0.0, -0.0]]).astype(np.float32)
+    hi, lo = fm.split_tf32(T(x))
+    for part in (hi, lo):  # tf32 values: the 13 low mantissa bits are zero
+        assert int((part.view(torch.int32) & 0x1FFF).abs().max()) == 0
+    x64 = x.astype(np.float64)
+    h64, l64 = hi.numpy().astype(np.float64), lo.numpy().astype(np.float64)
+    assert (np.abs(x64 - h64) <= 2.0**-11 * np.abs(x64)).all()  # hi is tf32(x)
+    assert (np.abs(x64 - h64 - l64) <= 2.0**-22 * np.abs(x64)).all()
+
+
+# (f32 bits, hi's bits): to nearest, ties away from zero, carries into the exponent
+SPLIT_ROUNDING = [(0x3F801000, 0x3F802000), (0x3F800FFF, 0x3F800000),
+                  (0xBF801000 - (1 << 32), 0xBF802000 - (1 << 32)), (0x3F803000, 0x3F804000),
+                  (0x3FFFF000, 0x40000000), (0x7F7FF000, 0x7F800000)]
+
+
+@pytest.mark.parametrize("bits,want", SPLIT_ROUNDING)
+def test_split_tf32_rounds_to_nearest_ties_away(bits, want):
+    x = torch.tensor([bits], dtype=torch.int32).view(torch.float32)
+    hi, lo = fm.split_tf32(x)
+    assert int(hi.view(torch.int32)) == want
+    if bits & 0xFFF == 0 and want != 0x7F800000:  # x - hi is +-2^-11 ulp(x): one tf32 value
+        assert float(hi.double() + lo.double()) == float(x.double())
+
+
+@pytest.mark.parametrize("C", [32, 37])
+def test_split_query_plain_pads_channels(C):
+    x = T(np.random.default_rng(C).standard_normal((2, 5, C)).astype(np.float32))
+    out = fm.split_query(x)
+    assert out.shape == (2, 2, 5, fm.split_width(C)) and fm.split_width(C) % 4 == 0
+    hi, lo = fm.split_tf32(x)
+    assert torch.equal(out[0, ..., :C], hi) and torch.equal(out[1, ..., :C], lo)
+    assert not out[..., C:].any()
+    assert fm.match_f32_route(C) == ("tma" if C % 4 == 0 else "cp_async")
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_three_product_split_matches_pallas_interpret(world):
+    """The f32 kernel's arithmetic (3xTF32 products) through the matching
+    post-processing reproduces the Pallas kernel."""
+    npat = world.get("npat", 4)
+    tar, store, tmask, smask, labels = _world(**world)
+    kw = dict(sim_threshold=0.5, patch_threshold=1, num_patches=npat)
+    got = fm.match_scores_plain(T(tar), T(store), T(tmask), T(smask), T(labels),
+                                products="3xtf32", **kw)
+    want = pallas_match_scores(J(tar), J(store), J(tmask), J(smask), J(labels),
+                               interpret=True, **kw)
+    for name, g, w in zip(("sim_avg", "idx_t2s", "score_t2s", "valid"), got, want):
+        if g.dtype == torch.int32:
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
+        else:
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5, err_msg=name)
+    k = 4
+    _assert_match_equal(
+        select_top_k(*got, k=k, num_patches=npat),
+        pallas_match_templates(J(tar), J(store), J(tmask), J(smask), J(labels), k=k,
+                               interpret=True, **kw),
+    )
