@@ -106,7 +106,9 @@ inputs, twice: with the bf16 AE (`serving_quant=off`) and with the int8 AE
    meshes the card's host loop against the CPU (B = 2), the renderers
    against each other at the same batch without keep_best_init, the device
    renderer at B = 8 against two batches of 4, the referee's choice with
-   it, every pose moved; then the refine CLI
+   it, every pose moved; refine_batch without keep_best_init on both
+   renderers, beside the batch with it: the referee's own cost ([referee]);
+   then the refine CLI
    (`gigapose_tpu_torch.refine.main`) on the MultiHypothesis csv of phase
    10's last run, 20 images, min_score 0, with each renderer: one row per
    instance, each equal to one of its coarse hypotheses (the CLI's
@@ -178,6 +180,32 @@ inputs, twice: with the bf16 AE (`serving_quant=off`) and with the int8 AE
    refiner itself) and with coarse_mode=so3grid on 2 images
    ([megapose_cli]); no hand-written kernel launched ([megapose], with the
    phase's seconds).
+16. refiner training on the card, in phase 11's dataset (its two
+   19,840-face meshes), through `gigapose_tpu_torch.scripts.train_refiner`
+   at its defaults (RefinerNet 64 (3, 4, 6, 3), scorer 32 (2, 2, 2, 2),
+   160 x 160, batch 8, the curriculum, the scorer's three classes) for
+   RT_STEPS steps (cut from the script's 2,000): s per step p50 / p90 and
+   the host's split (batch: the draws and the 480 x 640 observed renders;
+   crop: the crop steps and their fetch; render: the 8 + 16 renders of
+   160 x 160; step: the uploads and both optimizer steps), the refiner loss
+   and the scorer's BCE at the first and last step, peak memory, the f32
+   bound of a step's convolutions (counted by hooks) and the card's busy
+   share over 3 more steps (torch.profiler) ([refiner_train]); no
+   hand-written kernel and no rasterizer launch; one step of each net from
+   the same weights on the same inputs (a batch, its crops and renders made
+   once) on the card and on the CPU, TF32 off: the losses, each
+   parameter's gradient against the CPU's f64 gradient, the BatchNorm
+   statistics, and two planted gradient faults that the check must catch
+   ([refiner_train_parity]); the saved checkpoint loaded as refine.py loads
+   it, on a held batch of the training distribution (ground truth known):
+   the same poses as the trainer's own nets, the random nets' poses the
+   init, every pose in the scene, the mean point distance to the ground
+   truth against the init's ([refiner_train_held]);
+   the checkpoint through `python -m gigapose_tpu_torch.refine
+   refiner_checkpoint=...` on phase 10's first RT_SERVE_IMAGES images: a
+   finite csv, other poses than the random nets' run of phase 11 on the
+   same images, the inits' and the served translations, per-image p50
+   ([refiner_train_serve]).
 15. the int8 IST on the card (models/ist_int8 on csrc/qconv.cu), at the
    default IST (stem 7x7/s2 to 128 x 128 x 128, stages 128 / 192 / 256 /
    512, 1x1 out conv to 256) and B = 32. 15.1 (after phase 9) each of its
@@ -264,9 +292,15 @@ from gigapose_tpu_torch.ops import qmm as Q
 from gigapose_tpu_torch.ops.matching import select_top_k
 from gigapose_tpu_torch.pipeline.estimator import EstimatorConfig, GigaPoseEstimator
 from gigapose_tpu_torch.pipeline.runner import CALIB_MARGIN, CALIB_VIEWS, prepare_batch
-from gigapose_tpu_torch.pipeline.templates import onboard_templates, prepare_template_crops
+from gigapose_tpu_torch.pipeline.templates import (
+    TEMPLATE_K,
+    onboard_templates,
+    prepare_template_crops,
+)
 from gigapose_tpu_torch.refiner import device_render as DR
+from gigapose_tpu_torch.refiner import training as RTRAIN
 from gigapose_tpu_torch.refiner.ops import normalize_T
+from gigapose_tpu_torch.refiner.checkpoint import load_refiner_checkpoint
 from gigapose_tpu_torch.refiner.refiner import (
     MeshStore,
     RefinerConfig,
@@ -282,9 +316,10 @@ from gigapose_tpu_torch.render.mesh_io import load_mesh
 from gigapose_tpu_torch.render.rasterizer import Rasterizer
 from gigapose_tpu_torch.scripts import eval_bop
 from gigapose_tpu_torch.scripts import render_templates as RT
+from gigapose_tpu_torch.scripts import train_refiner as TRAIN_REFINER
 from gigapose_tpu_torch.training.checkpoint import serving_weights
 from gigapose_tpu_torch.training.loop import FitConfig, fit
-from gigapose_tpu_torch.training.state import OptimConfig, TrainState, train_step
+from gigapose_tpu_torch.training.state import Adam, OptimConfig, TrainState, train_step
 
 SEED = 0
 MODEL = "dinov2_vitl14"
@@ -1327,6 +1362,8 @@ REFINE_ITERS = 5
 # renders per refine_batch: the iterations, the final score and
 # keep_best_init's two renders in the init pose's crop frame
 RENDERS_PER_BATCH = REFINE_ITERS + 1 + 2
+# without keep_best_init: the iterations and the final score
+RENDERS_NO_REFEREE = REFINE_ITERS + 1
 # the rasterizer against its plain version: bit-equal (csrc/rasterizer.cu is
 # built with -fmad=false and rounds as the plain version does, culls only
 # the pixels its f32 error bound proves the inside test rejects, and breaks
@@ -1668,6 +1705,7 @@ def time_refine(r: RenderCompareRefiner, args, tag: str, smi) -> tuple:
     batch on the host clock, the host loop's phases, rasterizer launches;
     then one batch under torch.profiler: the device's busy share of it)."""
     B, host = len(args[2]), r.config.renderer == "host"
+    renders = RENDERS_PER_BATCH if r.config.keep_best_init else RENDERS_NO_REFEREE
     r.refine_batch(*args)
     reset_counts()
     RZ.rasterize.launches = 0
@@ -1678,7 +1716,7 @@ def time_refine(r: RenderCompareRefiner, args, tag: str, smi) -> tuple:
         out = r.refine_batch(*args)
         times.append((time.perf_counter() - t0) * 1e3)
     launches = RZ.rasterize.launches
-    check(launches == (0 if host else 3 * RENDERS_PER_BATCH),
+    check(launches == (0 if host else 3 * renders),
           f"{tag}: {launches} rasterizer launches in 3 batches")
     check(counts() == expected_counts(0), f"{tag}: other kernels launched")
     check(bool(np.isfinite(out[0]).all() and np.isfinite(out[1]).all()),
@@ -1731,6 +1769,18 @@ def phase_refine(dev, mesh_paths, large_paths, smi) -> dict:
     for renderer in ("host", "device"):
         out[renderer], rec[renderer] = time_refine(with_config(ref, renderer=renderer), args,
                                                    renderer, smi)
+    # the referee's own cost: the same batch without keep_best_init
+    for renderer in ("host", "device"):
+        _, off = time_refine(with_config(ref, renderer=renderer, keep_best_init=False), args,
+                             f"{renderer}_no_referee", smi)
+        on = rec[renderer]
+        rec[f"{renderer}_no_referee"] = off
+        log("referee", renderer=renderer, B=B, keep_best_init_ms=f"{on['batch_ms']:.4g}",
+            without_ms=f"{off['batch_ms']:.4g}",
+            referee_ms=f"{on['batch_ms'] - off['batch_ms']:.4g}",
+            referee_share=f"{1 - off['batch_ms'] / on['batch_ms']:.4g}",
+            hypotheses_per_s_on=f"{B / on['batch_ms'] * 1e3:.4g}",
+            hypotheses_per_s_off=f"{B / off['batch_ms'] * 1e3:.4g}", card=repr(smi))
     large = dataclasses.replace(ref, meshes=MeshStore(large_paths, 500), _device_pack=None)
     for renderer in ("host", "device"):
         _, rec[f"{renderer}_large"] = time_refine(with_config(large, renderer=renderer), args,
@@ -2935,6 +2985,307 @@ def phase_megapose(root: str, init_csv: str, dev, smi) -> dict:
     return rec
 
 
+# 16. refiner training on the card: scripts/train_refiner.py at its defaults
+# (RefinerNet 64, scorer 32, 160 x 160, batch 8, lr 3e-4, the curriculum)
+# for RT_STEPS steps, cut from its 2,000
+RT_STEPS = 40
+RT_B = 8
+RT_LR = 3e-4
+RT_HELD = 3  # steps under torch.profiler
+RT_K = np.asarray(TEMPLATE_K)  # the camera of the script's observed views
+RT_CPU_B = 2  # the card-against-CPU step's batch
+# one step of each net, card against CPU, from the same weights on the same
+# inputs (the crops and renders made once: made on each device, the crops sit
+# an ulp apart, as in refinement, and flip render pixels, which moved the
+# scorer's BCE by 1.35e-4 on an H100) (TF32 off): the losses (the forward
+# before the update) to 1e-4 relative of the CPU's; each parameter's
+# gradient (before the update) within RT_GRAD_ATOL + 2 x the CPU f32
+# gradient's own gap of the CPU's f64 gradient (per tensor, in norm: a
+# BatchNorm's f32 gradient can be ill-conditioned, and the CPU's f32 gap
+# measures it; gigapose_tpu_torch/scripts/refiner_train_probe.py reads both
+# devices' gaps, PERF.md §6); the
+# BatchNorm statistics to 1e-3 of max(1, |x|). A gradient negated or zeroed
+# reads 2 or 1, and the check is shown failing on both.
+RT_CPU_BOUND = dict(loss=1e-4, stats=1e-3)
+RT_GRAD_ATOL = 1e-2
+# 16.3: held batches of the training distribution at the script's full
+# perturbation, refined as refine.py does (5 iterations, keep_best_init).
+# After 40 steps the refiner does not yet beat its init, and how far it moves
+# away varies from run to run (cuDNN's backward is not deterministic:
+# refiner_train_probe and this phase read 1.2 to 3.8 x the init's mean point
+# distance, PERF.md §6), so the distance is reported, not bounded; every
+# pose must stay in the scene: in front of the camera within 2 m, x and y
+# within 0.5 m of the axis (the draws: z 0.35-0.7 m, x and y within 5 cm)
+RT_HELD_BATCHES = 4  # of RT_B poses
+RT_HELD_Z = (0.1, 2.0)
+RT_HELD_XY = 0.5
+RT_SERVE_IMAGES = 10  # phase 10's first images through refine.py with the checkpoint
+
+
+def refiner_train_work(ref, B: int, dev) -> dict:
+    """The f32 work of one refiner training step at batch B, counted from
+    the nets (hooks on one forward, megapose_net_work): the refiner's
+    forward at B and the scorer's at 3 B (its three classes), each with a
+    backward of twice the forward. Bytes: each parameter, its gradient and
+    both Adam moments read and written once, the B observed images (480 x
+    640 f32) and the crops and renders read. -> per-step GFLOP of each net,
+    the bound."""
+    size = ref.config.render_size
+    fwd = {"refiner": megapose_net_work(ref.refiner_net, 6, B, size, dev),
+           "scorer": megapose_net_work(ref.scorer_net, 6, 3 * B, size, dev)}
+    ops = 3 * sum(fwd.values())
+    params = sum(p.numel() for net in (ref.refiner_net, ref.scorer_net) for p in net.parameters())
+    nbytes = 4.0 * params * 8 + B * 3 * H * W * 4 + 4 * B * 6 * size[0] * size[1] * 4
+    return dict(step_gflop={k: 3 * v / 1e9 for k, v in fwd.items()}, params=params,
+                **bound(ops, "f32", nbytes))
+
+
+def grad_gaps(got: dict, want: dict) -> dict:
+    """Per tensor |got - want| / |want| (Frobenius norms) over {name:
+    gradient}."""
+    return {k: float((got[k].double() - w).norm() / w.norm().clamp(min=1e-30))
+            for k, w in want.items()}
+
+
+def grad_excess(card: dict, cpu: dict, f64: dict) -> tuple:
+    """The card's gradient gaps to f64 against RT_GRAD_ATOL + 2 x the CPU
+    f32 gradient's -> (largest gap / its bound, its tensor, the largest gap)."""
+    g_card, g_cpu = grad_gaps(card, f64), grad_gaps(cpu, f64)
+    ratio = {k: g / (RT_GRAD_ATOL + 2 * g_cpu[k]) for k, g in g_card.items()}
+    worst = max(ratio, key=ratio.get)
+    return ratio[worst], worst, max(g_card.values())
+
+
+def refiner_train_parity(ref, dev) -> dict:
+    """16.2: one refiner step and one scorer step from the trained weights
+    on the same batch (a synthetic_refiner_batches batch, its crops and
+    renders made once, on the CPU), on the card and on the CPU in f32, and
+    on the CPU in f64 (the gradients' reference): the two losses, every
+    parameter's gradient (before the update) and the BatchNorm statistics
+    after it; then a planted fault, one gradient negated and one zeroed,
+    against the same bound."""
+    cpu = torch.device("cpu")
+    copy_to = lambda net, where, dtype: copy.deepcopy(net).to(where, dtype)
+    on_cpu = dataclasses.replace(ref, refiner_net=copy_to(ref.refiner_net, cpu, None),
+                                 scorer_net=copy_to(ref.scorer_net, cpu, None), device=cpu,
+                                 _device_pack=None)
+    batch = next(RTRAIN.synthetic_refiner_batches(ref.meshes, RT_K, batch_size=RT_CPU_B,
+                                                   seed=SEED + 60))
+    with no_tf32():
+        inputs = RTRAIN.step_inputs(on_cpu, batch)
+    runs = {}
+    for tag, where, dtype in (("card", dev, torch.float32), ("cpu", cpu, torch.float32),
+                              ("f64", cpu, torch.float64)):
+        r_net, s_net = copy_to(ref.refiner_net, where, dtype), copy_to(ref.scorer_net, where, dtype)
+        r_opt, s_opt = Adam({"refiner": RT_LR}), Adam({"scorer": RT_LR})
+        r_in, s_in = ([t.to(where, dtype) for t in ts] for ts in inputs)
+        t0 = time.perf_counter()
+        with no_tf32():
+            aux = RTRAIN.refiner_step(r_net, r_opt, r_opt.init({"refiner": r_net}), *r_in)
+            bce = RTRAIN.scorer_step(s_net, s_opt, s_opt.init({"scorer": s_net}), *s_in)
+        nets = (("refiner_net", r_net), ("scorer_net", s_net))
+        runs[tag] = dict(loss=float(aux["loss"]), bce=float(bce), s=time.perf_counter() - t0,
+                         grads={f"{n}.{k}": p.grad.detach().cpu()
+                                for n, net in nets for k, p in net.named_parameters()},
+                         stats={f"{n}.{k}": v.detach().cpu() for n, net in nets
+                                for k, v in net.state_dict().items()
+                                if k.endswith(("running_mean", "running_var"))})
+    card, cpu_run, f64 = runs["card"], runs["cpu"], runs["f64"]
+    gap = dict(loss=abs(card["loss"] / cpu_run["loss"] - 1),
+               bce=abs(card["bce"] / cpu_run["bce"] - 1),
+               stats=max(float(((card["stats"][k] - v).abs() / v.abs().clamp(min=1.0)).max())
+                         for k, v in cpu_run["stats"].items()))
+    gap["grad_to_bound"], worst, gap["grad_f64"] = grad_excess(card["grads"], cpu_run["grads"],
+                                                               f64["grads"])
+    gap["cpu_grad_f64"] = max(grad_gaps(cpu_run["grads"], f64["grads"]).values())
+    gap["grad_cpu"] = max(grad_gaps(card["grads"], cpu_run["grads"]).values())
+    # planted faults: the first convolution's gradient negated, the last
+    # block's second convolution's zeroed
+    first = next(iter(card["grads"]))
+    last = [k for k in card["grads"] if k.startswith("refiner_net.") and "conv2" in k][-1]
+    planted = {}
+    for fault, k, f in (("negated", first, -1.0), ("zeroed", last, 0.0)):
+        g = dict(card["grads"], **{k: card["grads"][k] * f})
+        planted[fault] = grad_excess(g, cpu_run["grads"], f64["grads"])[0]
+    log("refiner_train_parity", B=RT_CPU_B, cpu_s=f"{cpu_run['s']:.2f}",
+        card_s=f"{card['s']:.2f}", f64_s=f"{f64['s']:.2f}",
+        **{f"{k}_gap": f"{v:.3g}" for k, v in gap.items()}, grad_worst=worst,
+        **{f"planted_{k}_to_bound": f"{v:.3g}" for k, v in planted.items()},
+        bound=repr(dict(RT_CPU_BOUND, grad_atol=RT_GRAD_ATOL)).replace(" ", ""))
+    for q in ("loss", "bce"):
+        check(gap[q] <= RT_CPU_BOUND["loss"], f"refiner training step, card against CPU: {gap}")
+    check(gap["stats"] <= RT_CPU_BOUND["stats"], f"refiner training step, card against CPU: {gap}")
+    check(gap["grad_to_bound"] <= 1.0, f"refiner training gradients, card against the CPU's "
+          f"f64: {worst} at {gap['grad_to_bound']:.3g} of its bound ({gap})")
+    check(min(planted.values()) > 1.0,
+          f"a planted gradient fault passes the card-against-CPU check: {planted}")
+    return dict(gap, planted=planted)
+
+
+def point_dist_mm(TCO: np.ndarray, TCO_gt: np.ndarray, pts: np.ndarray) -> np.ndarray:
+    """Per pose the mean distance of the object's points at TCO from the
+    same points at TCO_gt, in mm."""
+    at = lambda T: np.einsum("bij,bpj->bpi", T[:, :3, :3], pts) + T[:, None, :3, 3]
+    return np.linalg.norm(at(TCO) - at(TCO_gt), axis=-1).mean(-1) * 1e3
+
+
+def refiner_train_held(ref, cad: str, ckpt_dir: str, dev) -> dict:
+    """16.3: the checkpoint loaded as refine.py loads it
+    (load_refiner_checkpoint into a fresh refiner at the script's widths)
+    on RT_HELD_BATCHES held batches of the training distribution at the full
+    perturbation, their ground truth known, refined at refine.py's defaults: the same poses
+    as the trainer's own nets, the fresh (random) nets' poses the init (the
+    identity head), the served poses moved from it and in the scene; their
+    mean point distance to the ground truth against the init's."""
+    fresh = RenderCompareRefiner.create(refine_cli.mesh_paths_of(cad), config=ref.config,
+                                        refiner_width=ref.refiner_net.backbone.width,
+                                        scorer_width=ref.scorer_net.backbone.width, device=dev)
+    trained = dataclasses.replace(ref, meshes=fresh.meshes)
+    try:
+        gen = RTRAIN.synthetic_refiner_batches(fresh.meshes, RT_K, batch_size=RT_B, seed=SEED + 62)
+        batches = [next(gen) for _ in range(RT_HELD_BATCHES)]
+        args = [(b["images"], b["K"], b["labels"], b["TCO_init"]) for b in batches]
+        T_random = np.concatenate([fresh.refine_batch(*a)[0] for a in args])
+        load_refiner_checkpoint(ckpt_dir, fresh)
+        T_served = np.concatenate([fresh.refine_batch(*a)[0] for a in args])
+        T_trained = np.concatenate([trained.refine_batch(*a)[0] for a in args])
+        pts = np.stack([fresh.meshes.points[int(l)] for b in batches for l in b["labels"]])
+    finally:
+        fresh.meshes.close()
+    TCO_gt, TCO_init = (np.concatenate([b[k] for b in batches]) for k in ("TCO_gt", "TCO_init"))
+    d_init = point_dist_mm(TCO_init, TCO_gt, pts)
+    d_served = point_dist_mm(T_served, TCO_gt, pts)
+    t = T_served[:, :3, 3]
+    rec = dict(poses=len(t), init_mm=float(d_init.mean()), served_mm=float(d_served.mean()),
+               ratio=float(d_served.mean() / d_init.mean()),
+               closer=int((d_served < d_init).sum()),
+               gap_to_trainer=float(np.abs(T_served - T_trained).max()),
+               random_gap_to_init=float(np.abs(T_random - TCO_init).max()),
+               moved=float(np.abs(T_served - T_random).max()),
+               z_min=float(t[:, 2].min()), z_max=float(t[:, 2].max()),
+               xy_max=float(np.abs(t[:, :2]).max()))
+    log("refiner_train_held", **{k: (f"{v:.4g}" if isinstance(v, float) else v)
+                                 for k, v in rec.items()},
+        bound=f"z{RT_HELD_Z},xy<{RT_HELD_XY}".replace(" ", ""))
+    check(rec["gap_to_trainer"] <= 1e-5, f"the checkpoint as refine.py loads it refines "
+          f"otherwise than the trainer's nets: {rec['gap_to_trainer']}")
+    check(rec["random_gap_to_init"] <= 1e-5 and rec["moved"] > 1e-4,
+          f"held batch: the random nets moved the init or the trained ones did not: {rec}")
+    check(np.isfinite(T_served).all() and RT_HELD_Z[0] <= rec["z_min"]
+          and rec["z_max"] <= RT_HELD_Z[1] and rec["xy_max"] <= RT_HELD_XY,
+          f"held batch: a served pose left the scene: {rec}")
+    return rec
+
+
+def refiner_train_serve(root: str, init_csv: str, ckpt_dir: str, smi) -> dict:
+    """16.3: refine.py with refiner_checkpoint= on phase 10's first
+    RT_SERVE_IMAGES images (the host renderer, as phase 11.5's run): every
+    pose finite, not all equal to phase 11.5's random nets' run of the same
+    images; per-image p50 / p90."""
+    save_dir = osp.join(root, "results", "refine_trained")
+    paths, timing = refine_cli.main([
+        f"machine.root_dir={root}", "test_dataset_name=tudl", "model=large",
+        "run_id=refine_trained", f"init_loc_path={init_csv}", f"save_dir={save_dir}",
+        "min_score=0", f"max_images={RT_SERVE_IMAGES}", f"refiner_checkpoint={ckpt_dir}"])
+    rows = bop_io.load_bop_csv(paths[0])
+    key = lambda r: (r["scene_id"], r["im_id"], r["obj_id"])
+    folder = osp.join(root, "results", "refine_host", "predictions_refined")
+    random_rows = {key(r): r for f in sorted(os.listdir(folder)) if f.endswith(".csv")
+                   for r in bop_io.load_bop_csv(osp.join(folder, f))}
+    check(rows and all(np.isfinite(r["R"]).all() and np.isfinite(r["t"]).all() for r in rows),
+          "refine with the trained checkpoint: empty or not finite")
+    common = [k for k in map(key, rows) if k in random_rows]
+    moved = max(max(float(np.abs(r["R"] - random_rows[key(r)]["R"]).max()),
+                    float(np.abs(r["t"] - random_rows[key(r)]["t"]).max()))
+                for r in rows if key(r) in random_rows)
+    check(len(common) == len(rows) and moved > 1e-3,
+          f"trained refine: {len(common)} of {len(rows)} rows in the random run, "
+          f"largest difference {moved}")
+    ms = np.asarray(timing["image_s"]) * 1e3
+    # the random nets return their inits (phase 11.5: max_gap_to_coarse), so
+    # their rows are the inits' translations
+    t_init = np.stack([random_rows[key(r)]["t"] for r in rows])
+    t_served = np.stack([r["t"] for r in rows])
+    z_ratio = t_served[:, 2] / t_init[:, 2]
+    rec = dict(images=timing["images"], rows=len(rows), image_ms_p50=float(np.percentile(ms, 50)),
+               image_ms_p90=float(np.percentile(ms, 90)), max_gap_to_random=moved,
+               init_z_mm_p50=float(np.median(t_init[:, 2])),
+               init_z_mm_max=float(t_init[:, 2].max()),
+               served_z_mm_p50=float(np.median(t_served[:, 2])),
+               served_z_mm_min=float(t_served[:, 2].min()),
+               served_z_mm_max=float(t_served[:, 2].max()),
+               z_ratio_p50=float(np.median(z_ratio)), z_ratio_max=float(z_ratio.max()),
+               rows_z_over_10x=int((np.abs(z_ratio) > 10).sum()))
+    log("refiner_train_serve", **{k: (f"{v:.4g}" if isinstance(v, float) else v)
+                                  for k, v in rec.items()}, card=repr(smi))
+    return rec
+
+
+def phase_refiner_training(root: str, init_csv: str, dev, smi) -> dict:
+    """16. Refiner training on the card: 16.1 the script at its defaults in
+    phase 11's dataset (timed through train_refiner's `timing`), then
+    RT_HELD more steps under the profiler; 16.2 card against CPU; 16.3 its
+    checkpoint served by refine.py."""
+    t_phase = time.perf_counter()
+    cad = osp.join(root, "datasets", "tudl", "models")
+    ckpt_dir = osp.join(root, "refiner_ckpt")
+    timing: dict = {}
+    reset_counts()
+    RZ.rasterize.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    ref = TRAIN_REFINER.main([f"cad_dir={cad}", f"out_dir={ckpt_dir}", f"steps={RT_STEPS}"],
+                             timing=timing)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    launched = counts()
+    check(not any(launched.values()) and RZ.rasterize.launches == 0,
+          f"refiner training launched hand-written kernels: {launched}, rasterizer "
+          f"{RZ.rasterize.launches}")
+    cfg = ref.config
+    check(cfg.render_size == (160, 160) and ref.refiner_net.backbone.width == 64
+          and ref.scorer_net.backbone.width == 32 and ref.refiner_net.backbone.blocks
+          == (3, 4, 6, 3) and ref.scorer_net.backbone.blocks == (2, 2, 2, 2),
+          "train_refiner's defaults changed")
+    hist, bce = np.asarray(ref.loss_history), np.asarray(ref.scorer_loss_history)
+    check(len(hist) == len(bce) == RT_STEPS and np.isfinite(hist).all()
+          and np.isfinite(bce).all(), "refiner training: a loss is missing or not finite")
+    steps = np.asarray(timing["step_s"][1:])  # the first step warms cuDNN up
+    per_step = {k: timing[k] / RT_STEPS * 1e3 for k in ("batch", "crop", "render", "step")}
+    # RT_HELD more steps under the profiler, on a mesh store with its pool
+    # (on copies of the nets: the checkpoint holds the 40 steps' weights)
+    held = dataclasses.replace(ref, refiner_net=copy.deepcopy(ref.refiner_net),
+                               scorer_net=copy.deepcopy(ref.scorer_net),
+                               meshes=MeshStore(refine_cli.mesh_paths_of(cad), 500))
+    prof = device_profile(lambda: RTRAIN.train_refiner(held, RT_K, steps=1, batch_size=RT_B,
+                                                       lr=RT_LR, seed=SEED + 61, log_every=10),
+                          iters=RT_HELD)
+    work = refiner_train_work(held, RT_B, dev)
+    held.meshes.close()
+    rec = dict(steps=RT_STEPS, batch=RT_B, run_s=run_s, first_step_s=timing["step_s"][0],
+               step_s_p50=float(np.median(steps)), step_s_p90=float(np.percentile(steps, 90)),
+               **{f"{k}_ms_per_step": v for k, v in per_step.items()},
+               loss_first=float(hist[0]), loss_last=float(hist[-1]), bce_first=float(bce[0]),
+               bce_last=float(bce[-1]), held_step_ms=prof["wall_ms"],
+               held_busy_ms=prof["busy_ms"], busy_share=prof["busy_share"],
+               peak_gib=peak / 2**30, **work)
+    top = sorted(prof["kernels_us"].items(), key=lambda kv: -kv[1])[:8]
+    log("refiner_train_kernels", **{f"k{i}": f"{us / 1e3:.2f}ms:{name[:60].replace(' ', '')}"
+                                    for i, (name, us) in enumerate(top)})
+    log("refiner_train", **{k: (f"{v:.4g}" if isinstance(v, float) else v)
+                            for k, v in rec.items() if k != "step_gflop"},
+        step_gflop=repr({k: round(v, 2) for k, v in work["step_gflop"].items()})
+        .replace(" ", ""), card=repr(smi))
+    rec["parity"] = refiner_train_parity(ref, dev)
+    rec["held"] = refiner_train_held(ref, cad, ckpt_dir, dev)
+    rec["serve"] = refiner_train_serve(root, init_csv, ckpt_dir, smi)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log("refiner_training_phase", seconds=f"{rec['phase_s']:.1f}")
+    torch.cuda.empty_cache()
+    return rec
+
+
 # 15. int8 IST on the card, at model=large's default IST (initial_dim 128,
 # stages 128 / 192 / 256 / 512, descriptor 256, the 224 crop resized to 256)
 # and B = IST_B. Its convolutions, one entry per distinct (input, kernel,
@@ -3523,13 +3874,15 @@ def main() -> int:
     # refinement on the card, in that dataset;
     # 12. templates from CAD models and BOP scoring, beside that dataset;
     # 13. training on the card, in 12's dataset, served on 10's;
-    # 14. MegaPose refinement on the card, in 10's dataset and 11's meshes
+    # 14. MegaPose refinement on the card, in 10's dataset and 11's meshes;
+    # 16. refiner training on the card, in 11's dataset, served on 10's
     # 15.4. the coarse CLI with the static int8 IST, in 10's dataset
     def after_cli(root, csv, info):
         rec = phase_refinement(root, csv, dev, smi)
         rec["templates"] = phase_templates(root, dev, smi)
         rec["training"] = phase_training(root, dev, smi)
         rec["megapose"] = phase_megapose(root, csv, dev, smi)
+        rec["refiner_training"] = phase_refiner_training(root, csv, dev, smi)
         t0 = time.perf_counter()
         rec["ist_cli"] = phase_ist_cli(root, info, dev, smi)
         log("ist_cli_phase", seconds=f"{time.perf_counter() - t0:.1f}")

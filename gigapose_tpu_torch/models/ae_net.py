@@ -9,7 +9,7 @@ P = (H / 14) * (W / 14).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 from torch import nn
@@ -19,7 +19,7 @@ from gigapose_tpu_torch.models.vit import VIT_CONFIGS, ViT
 
 class AENet(nn.Module):
     def __init__(self, model_name: str = "dinov2_vitl14", compute_dtype: Optional[str] = None,
-                 remat: bool = False):
+                 remat: Union[bool, str] = False):
         super().__init__()
         self.model_name = model_name
         self.vit = ViT(dataclasses.replace(VIT_CONFIGS[model_name], compute_dtype=compute_dtype,

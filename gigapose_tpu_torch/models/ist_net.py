@@ -12,7 +12,10 @@ BatchNorm normalizes by its running statistics in eval mode (eps 1e-5) and,
 in training mode (`module.train()`), as flax's train-mode BatchNorm does:
 by the batch's biased variance E[x^2] - E[x]^2 in f32, with the running
 statistics moved to it at momentum 0.9 (flax's convention; torch's
-nn.BatchNorm2d would store the unbiased variance). Module names
+nn.BatchNorm2d would store the unbiased variance; models/flax_bn.py).
+`norm_dtype="bfloat16"` rounds every BatchNorm output to bf16 (the JAX
+package's train-time memory knob): the residual stream is then bf16, and a
+convolution without compute_dtype takes its bf16 input in f32. Module names
 follow the original GigaPose ResNet / Regressor state dicts (conv1, bn1,
 layerL.B.{conv1,bn1,conv2,bn2,downsample.0,downsample.1}, layer4_outconv,
 {scale,inplane}_predictor.{0,2,4}), which models/convert.py fills.
@@ -38,6 +41,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from gigapose_tpu_torch.models.flax_bn import batch_norm
 from gigapose_tpu_torch.ops.gather import gather_patches
 
 
@@ -81,38 +85,18 @@ def resize_bilinear_align_corners(x: torch.Tensor, size: Tuple[int, int],
 
 
 def conv(layer: nn.Conv2d, x: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
-    """layer(x) with input and weights cast to `dtype` (None: as stored)."""
+    """layer(x) with input and weights cast to `dtype` (None: in f32, a bf16
+    input promoted as flax promotes it)."""
     if dtype is None:
-        return layer(x)
+        return layer(x.to(torch.float32))
     return F.conv2d(x.to(dtype), layer.weight.to(dtype), None, layer.stride, layer.padding)
 
 
-# flax BatchNorm's momentum: running = momentum * running + (1 - momentum) * batch
-BN_MOMENTUM = 0.9
-
-
-def batch_norm(layer: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
-    """BatchNorm in f32: on the running statistics in eval mode; in training
-    mode on the batch's statistics as flax computes them (mean and E[x^2] -
-    mean^2 over N, H, W, floored at 0), moving the running statistics to
-    them at BN_MOMENTUM."""
-    x = x.to(torch.float32)
-    if not layer.training:
-        return F.batch_norm(x, layer.running_mean, layer.running_var, layer.weight, layer.bias,
-                            False, 0.0, layer.eps)
-    mean = x.mean(dim=(0, 2, 3))
-    var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
-    with torch.no_grad():
-        layer.running_mean.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * mean)
-        layer.running_var.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * var)
-    mul = torch.rsqrt(var + layer.eps) * layer.weight
-    return (x - mean[:, None, None]) * mul[:, None, None] + layer.bias[:, None, None]
-
-
 class BasicBlock(nn.Module):
-    def __init__(self, in_planes: int, planes: int, stride: int = 1, dtype=None):
+    def __init__(self, in_planes: int, planes: int, stride: int = 1, dtype=None,
+                 norm_dtype=None):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.norm_dtype = dtype, norm_dtype
         self.conv1 = nn.Conv2d(in_planes, planes, 3, stride, padding=1, bias=False)
         self.bn1 = nn.BatchNorm2d(planes, eps=1e-5)
         self.conv2 = nn.Conv2d(planes, planes, 3, 1, padding=1, bias=False)
@@ -125,10 +109,11 @@ class BasicBlock(nn.Module):
             )
 
     def forward(self, x):
-        y = F.relu(batch_norm(self.bn1, conv(self.conv1, x, self.dtype)))
-        y = batch_norm(self.bn2, conv(self.conv2, y, self.dtype))
+        nd = self.norm_dtype
+        y = F.relu(batch_norm(self.bn1, conv(self.conv1, x, self.dtype), nd))
+        y = batch_norm(self.bn2, conv(self.conv2, y, self.dtype), nd)
         if self.downsample is not None:
-            x = batch_norm(self.downsample[1], conv(self.downsample[0], x, self.dtype))
+            x = batch_norm(self.downsample[1], conv(self.downsample[0], x, self.dtype), nd)
         return F.relu(x + y)
 
 
@@ -232,18 +217,20 @@ class ISTBackbone(nn.Module):
         input_size: int = 256,
         num_attn_heads: int = 0,
         compute_dtype: Optional[str] = None,
+        norm_dtype: Optional[str] = None,
     ):
         super().__init__()
         self.input_size = input_size
         self.num_attn_heads = num_attn_heads
         self.dtype = torch.bfloat16 if compute_dtype == "bfloat16" else None
+        self.norm_dtype = torch.bfloat16 if norm_dtype == "bfloat16" else None
         self.conv1 = nn.Conv2d(3, initial_dim, 7, 2, padding=3, bias=False)
         self.bn1 = nn.BatchNorm2d(initial_dim, eps=1e-5)
         in_planes = initial_dim
         for i, (dim, stride) in enumerate(zip(block_dims, (1, 2, 2, 2))):
             layer = nn.Sequential(
-                BasicBlock(in_planes, dim, stride, self.dtype),
-                BasicBlock(dim, dim, 1, self.dtype),
+                BasicBlock(in_planes, dim, stride, self.dtype, self.norm_dtype),
+                BasicBlock(dim, dim, 1, self.dtype, self.norm_dtype),
             )
             setattr(self, f"layer{i + 1}", layer)
             if num_attn_heads > 0 and i in (1, 3):
@@ -253,7 +240,7 @@ class ISTBackbone(nn.Module):
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         x = resize_bilinear_align_corners(images, (self.input_size, self.input_size))
-        x = F.relu(batch_norm(self.bn1, conv(self.conv1, x, self.dtype)))
+        x = F.relu(batch_norm(self.bn1, conv(self.conv1, x, self.dtype), self.norm_dtype))
         for i in range(1, 5):
             x = getattr(self, f"layer{i}")(x)
             if self.num_attn_heads > 0 and i in (2, 4):

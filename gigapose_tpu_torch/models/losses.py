@@ -7,6 +7,8 @@ computes after compacting them.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 
@@ -28,12 +30,31 @@ def pairwise_cosine(a: torch.Tensor, b: torch.Tensor, normalize: bool = True) ->
 
 
 def info_nce_loss(query_feat: torch.Tensor, ref_feat: torch.Tensor, valid: torch.Tensor,
-                  tau: float = 0.1) -> torch.Tensor:
+                  tau: float = 0.1, compute_dtype: Optional[torch.dtype] = None
+                  ) -> torch.Tensor:
     """InfoNCE over matched pairs with in-batch negatives: row i of query
     matches row i of ref, (N,) `valid` flags the pairs. Invalid columns are
     masked to -1e9, so they act as no negative, and the mean runs over the
-    valid rows only."""
+    valid rows only.
+
+    compute_dtype=torch.bfloat16 keeps the (N, N) logit matrix in bf16, as
+    the JAX package's knob does: the product of the bf16 unit features and
+    its division by bf16(tau) in bf16, the log-sum-exp accumulated in f32
+    about the row's (bf16) maximum, and the positive logit exact: taken in
+    f32 from the pair's rows, it replaces the diagonal's bf16 term in the
+    sum (log1p of the difference)."""
     q, r = _unit(query_feat), _unit(ref_feat)
+    if compute_dtype is not None:
+        pos = (q * r).sum(-1) / tau  # (N,) f32 positive logits
+        logits = (q.to(compute_dtype) @ r.T.to(compute_dtype)) / torch.tensor(
+            tau, dtype=compute_dtype, device=q.device)
+        logits = torch.where(valid[None, :], logits,
+                             torch.full_like(logits, -1e9))
+        m = logits.amax(dim=1).detach().to(torch.float32)
+        lse = m + torch.log(torch.exp(logits.to(torch.float32) - m[:, None]).sum(dim=1))
+        diag = torch.diagonal(logits).to(torch.float32)
+        lse = lse + torch.log1p(torch.exp(pos - lse) - torch.exp(diag - lse))
+        return _masked_mean(lse - pos, valid)
     logits = (q @ r.T) / tau  # (N, N)
     logits = torch.where(valid[None, :], logits, torch.full_like(logits, -1e9))
     losses = torch.logsumexp(logits, dim=1) - torch.diagonal(logits)

@@ -15,22 +15,57 @@ residual stream stay f32. Attention is the plain softmax(QK^T)V form of the
 reference, with the same cast points.
 
 The forward runs under autograd (training): no in-place write touches a
-tensor that needs a gradient. `ViTConfig.remat=True` checkpoints each block
-while gradients are on (torch.utils.checkpoint, use_reentrant=False: the
-block's activations are recomputed in the backward pass, with the same
-gradients); the JAX package's policy names (e.g. "dots_saveable") are not
-ported and raise.
+tensor that needs a gradient. `ViTConfig.remat` takes what the JAX package's
+takes: False, True (each block checkpointed while gradients are on:
+torch.utils.checkpoint, use_reentrant=False, the block's activations
+recomputed in the backward pass, with the same gradients) or the name of a
+jax.checkpoint_policies entry, mapped onto selective checkpointing
+(`REMAT_POLICIES`): nothing_saveable is True; everything_saveable saves
+every output; dots_saveable and checkpoint_dots save the matmul outputs (mm,
+bmm, addmm) and recompute the rest; dots_with_no_batch_dims_saveable saves
+mm and addmm but not the batched bmm. Any other name raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
+
+_aten = torch.ops.aten
+_DOTS = (_aten.mm.default, _aten.bmm.default, _aten.addmm.default)
+# jax.checkpoint_policies names -> the aten ops whose outputs are saved
+# (None: every op's); nothing_saveable saves nothing (a full checkpoint)
+REMAT_POLICIES = {
+    "nothing_saveable": (),
+    "everything_saveable": None,
+    "dots_saveable": _DOTS,
+    "checkpoint_dots": _DOTS,
+    "dots_with_no_batch_dims_saveable": (_aten.mm.default, _aten.addmm.default),
+}
+
+
+def checkpoint_kwargs(remat) -> dict:
+    """torch.utils.checkpoint's keyword arguments for a remat setting (True
+    or a policy name): a full checkpoint, or a selective one that saves the
+    policy's ops."""
+    saved = () if remat is True else REMAT_POLICIES[remat]
+    if saved == ():
+        return {}
+
+    def policy(ctx, op, *args, **kwargs):
+        keep = saved is None or op in saved
+        return CheckpointPolicy.MUST_SAVE if keep else CheckpointPolicy.PREFER_RECOMPUTE
+
+    return {"context_fn": lambda: create_selective_checkpoint_contexts(policy)}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,13 +79,13 @@ class ViTConfig:
     layerscale_init: float = 1e-5
     num_register_tokens: int = 0
     compute_dtype: Optional[str] = None  # None (f32) | "bfloat16"
-    remat: bool = False  # checkpoint each block in training
+    # False | True (checkpoint each block in training) | a REMAT_POLICIES name
+    remat: Union[bool, str] = False
 
     def __post_init__(self):
-        if not isinstance(self.remat, bool):
-            raise NotImplementedError(
-                f"remat={self.remat!r}: remat policies are not ported (ROADMAP A12); "
-                "remat=true checkpoints each block")
+        if not isinstance(self.remat, bool) and self.remat not in REMAT_POLICIES:
+            raise ValueError(f"remat={self.remat!r}: false, true or one of the "
+                             f"jax.checkpoint_policies names {', '.join(REMAT_POLICIES)}")
 
     @property
     def matmul_dtype(self) -> Optional[torch.dtype]:
@@ -216,11 +251,10 @@ class ViT(nn.Module):
 
         reg = self.register_tokens if c.num_register_tokens else None
         x = add_tokens(x, self.cls_token, self.pos_embed, reg, self.pos_embed_size, gh, gw)
+        remat = c.remat and torch.is_grad_enabled()
+        kw = checkpoint_kwargs(c.remat) if remat else {}
         for blk in self.blocks:
-            if c.remat and torch.is_grad_enabled():
-                x = checkpoint(blk, x, use_reentrant=False)
-            else:
-                x = blk(x)
+            x = checkpoint(blk, x, use_reentrant=False, **kw) if remat else blk(x)
         x_prenorm = x.to(torch.float32)
         x_norm = self.norm(x_prenorm)
         if c.num_register_tokens:

@@ -36,9 +36,14 @@ random), so an untrained refiner returns its init poses.
 `GIGAPOSE_TINY=1` builds refine.py's tiny nets: GigaPose widths 8 / 8, 64x64
 renders, 8 crop points; MegaPose width 0.125, 60x80 renders, 8 points.
 
-Refused, with the ROADMAP item to look up: refiner_checkpoint (orbax, A12);
-refine_pipeline_chunks above 1, the pipelined host loop (A13c);
-multi-process runs (A14).
+refiner_checkpoint= loads the GigaPose refiner's and scorer's weights from
+the file (or its directory) that `python -m
+gigapose_tpu_torch.scripts.train_refiner` saves; its widths and render size
+must be those of the refiner built here (full width, or GIGAPOSE_TINY's),
+and with the MegaPose refiner it raises (that refiner reads
+megapose_*_ckpt). Refused, with the ROADMAP item to look up: a JAX orbax
+refiner checkpoint (A12); refine_pipeline_chunks above 1, the pipelined host
+loop (A13c); multi-process runs (A14).
 """
 
 from __future__ import annotations
@@ -49,6 +54,7 @@ from typing import Dict, List, Tuple
 
 from gigapose_tpu_torch.cli import device_of, load_cli_config
 from gigapose_tpu_torch.dataloader.scene import DirSceneSource, TarSceneSource
+from gigapose_tpu_torch.refiner.checkpoint import load_refiner_checkpoint
 from gigapose_tpu_torch.refiner.megapose_refiner import MegaposeRefiner, MegaposeRefinerConfig
 from gigapose_tpu_torch.refiner.refiner import RefinerConfig, RenderCompareRefiner
 from gigapose_tpu_torch.refiner.runner import (
@@ -116,9 +122,6 @@ def main(argv=None) -> Tuple[List[str], Dict]:
     ds = cfg.test_dataset_name
     if not ds:
         raise ValueError("test_dataset_name=... is required")
-    if cfg.get("refiner_checkpoint"):
-        raise NotImplementedError("refiner_checkpoint: loading an orbax refiner checkpoint "
-                                  "is ROADMAP A12")
     coarse_mode = str(cfg.get("coarse_mode") or "csv")
     if coarse_mode not in ("csv", "so3grid"):
         raise ValueError(f"coarse_mode must be csv or so3grid, not {coarse_mode!r}")
@@ -129,6 +132,9 @@ def main(argv=None) -> Tuple[List[str], Dict]:
                     or cfg.get("refiner_type") == "megapose" or coarse_mode == "so3grid")
     if megapose and str(cfg.get("refine_renderer") or "host") != "host":
         raise ValueError("refine_renderer: the MegaPose refiner renders on the host only")
+    if megapose and cfg.get("refiner_checkpoint"):
+        raise ValueError("refiner_checkpoint holds the GigaPose refiner's weights; the MegaPose "
+                         "refiner reads megapose_refiner_ckpt / megapose_coarse_ckpt")
 
     root = osp.join(cfg.machine.root_dir, "datasets")
     save_dir = cfg.get("save_dir") or osp.join(
@@ -151,6 +157,8 @@ def main(argv=None) -> Tuple[List[str], Dict]:
     common = dict(save_dir=save_dir, dataset_name=ds, model_name=cfg.model.model_name,
                   run_id=cfg.run_id, max_images=cfg.get("max_images"), timing=timing)
     try:
+        if cfg.get("refiner_checkpoint"):
+            load_refiner_checkpoint(str(cfg.refiner_checkpoint), refiner)
         if coarse_mode == "so3grid":
             paths = run_so3_coarse_refinement(
                 refiner, source, root_dir=root, grid_size=int(cfg.get("so3_grid_size") or 576),

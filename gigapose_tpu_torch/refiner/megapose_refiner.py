@@ -107,13 +107,18 @@ class MegaposeRefiner:
     coarse_net: MegaposePoseHeadNet
     meshes: MeshStore
     config: MegaposeRefinerConfig = MegaposeRefinerConfig()
-    device: torch.device = torch.device("cpu")
+    # None: the device of refiner_net's parameters
+    device: Optional[torch.device] = None
     # optional phase-time accumulator (seconds) over every render pass
     # (iterations and scoring): set to a dict to collect {"fetch": device
     # crop step + the (TCO, K_crop) fetch, "render": host raster, "upload":
     # the renders' copy to the device, "update": the net's dispatch, and
     # the pose update's or the sigmoid's}
     timing: Optional[dict] = None
+
+    def __post_init__(self):
+        if self.device is None:
+            self.device = next(self.refiner_net.parameters()).device
 
     # ---------------------------------------------------------- constructors
 

@@ -9,9 +9,11 @@ with a 1x1 downsample, global mean), with
   [1, 0, 0, 0, 1, 0, 0, 0, 1]), and
 - CoarseScorerNet: a 1-d logit.
 
-BatchNorm runs in eval mode with eps 1e-5 (flax's default). Module names
-follow the flax ones, so `models.convert.refiner_flax_to_torch` maps a
-variable tree by its paths.
+BatchNorm has eps 1e-5 (flax's default) and, in training mode
+(`module.train()`, refiner/training.py), flax's batch statistics: the biased
+variance, the running statistics moved at momentum 0.9
+(models/flax_bn.py). Module names follow the flax ones, so
+`models.convert.refiner_flax_to_torch` maps a variable tree by its paths.
 """
 
 from __future__ import annotations
@@ -22,11 +24,13 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from gigapose_tpu_torch.models.flax_bn import FlaxBatchNorm2d
+
 POSE_HEAD_BIAS = (1.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 1.0)
 
 
-def _bn(c: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(c, eps=1e-5, momentum=0.1)
+def _bn(c: int) -> FlaxBatchNorm2d:
+    return FlaxBatchNorm2d(c)  # eps 1e-5, flax's
 
 
 class ResBlock(nn.Module):
@@ -56,7 +60,7 @@ class RefinerBackbone(nn.Module):
     def __init__(self, in_channels: int = 6, width: int = 64,
                  blocks: Sequence[int] = (3, 4, 6, 3)):
         super().__init__()
-        self.blocks = tuple(blocks)
+        self.width, self.blocks = width, tuple(blocks)
         self.conv1 = nn.Conv2d(in_channels, width, 7, 2, 3, bias=False)
         self.bn1 = _bn(width)
         planes = width

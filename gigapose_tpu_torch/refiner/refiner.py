@@ -196,12 +196,21 @@ class RenderCompareRefiner:
     scorer_net: CoarseScorerNet
     meshes: MeshStore
     config: RefinerConfig = RefinerConfig()
-    device: torch.device = torch.device("cpu")
+    # None: the device of refiner_net's parameters
+    device: Optional[torch.device] = None
     # optional phase-time accumulator (seconds), host renderer only: set to a
     # dict to collect {"fetch": device step + the pack's fetch, "render":
     # host raster, "upload_update": render upload + net dispatch}
     timing: Optional[dict] = None
     _device_pack: Optional[DR.DeviceMeshes] = dataclasses.field(default=None, repr=False)
+    # set by refiner/training.py:train_refiner: the refiner loss and the
+    # scorer's BCE of every step
+    loss_history: Optional[list] = dataclasses.field(default=None, repr=False)
+    scorer_loss_history: Optional[list] = dataclasses.field(default=None, repr=False)
+
+    def __post_init__(self):
+        if self.device is None:
+            self.device = next(self.refiner_net.parameters()).device
 
     @classmethod
     def create(cls, mesh_paths: Dict[int, str], seed: int = 0,

@@ -1,1 +1,2 @@
-"""Command-line scripts of the port: template rendering and the BOP benchmark run."""
+"""Command-line scripts of the port: template rendering, refiner training and
+the BOP benchmark run."""

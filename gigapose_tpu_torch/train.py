@@ -69,7 +69,7 @@ def build_nets(cfg, tiny: bool):
         ist = ISTNet(ISTBackbone(initial_dim=8, block_dims=(8, 8, 12, 16), descriptor_size=16,
                                  input_size=256), Regressor(32, hidden_dim=16))
     else:
-        ae = AENet(cfg.model.ae_net.backbone, remat=bool(cfg.model.ae_net.get("remat")))
+        ae = AENet(cfg.model.ae_net.backbone, remat=cfg.model.ae_net.get("remat") or False)
         ist = default_ist_net(cfg.model.ist_net.descriptor_size)
     return init_random_(ae, gen), init_random_(ist, gen)
 

@@ -10,7 +10,10 @@
   warm_up_steps of the state's step.
 - src and tar go through the AE as one interleaved 2B batch; the IST runs
   its shared backbone on src, then on tar, in training mode (flax's
-  BatchNorm statistics, models/ist_net.batch_norm).
+  BatchNorm statistics, models/flax_bn.py), or with fuse_ist_pair once on
+  the interleaved 2B batch, BatchNorm on the pair's joint statistics.
+- nce_dtype="bf16" keeps InfoNCE's (N, N) logit matrix in bf16
+  (models/losses.info_nce_loss).
 
 The arithmetic follows optax in f32: mu = (1 - b1) g + b1 mu, nu = (1 - b2) g^2
 + b2 nu, u = (mu / (1 - b1^t)) / (sqrt(nu / (1 - b2^t)) + eps) + wd p, p += -lr u.
@@ -58,17 +61,17 @@ class OptimConfig:
     # tau_warmup_steps (0: off)
     tau_start: float = 0.0
     tau_warmup_steps: int = 0
-    # the JAX package's TPU memory knobs, not ported: setting them raises
+    # the JAX package's memory knobs: one IST backbone pass over the
+    # interleaved 2B pair (BatchNorm on the pair's joint statistics), and
+    # "bf16" for InfoNCE's logit matrix
     fuse_ist_pair: bool = False
     nce_dtype: Optional[str] = None
 
     def __post_init__(self):
         if self.nets_to_train not in ("ae", "ist", "all"):
             raise ValueError(f"nets_to_train={self.nets_to_train!r}: ae, ist or all")
-        for knob in ("fuse_ist_pair", "nce_dtype"):
-            if getattr(self, knob):
-                raise NotImplementedError(f"OptimConfig.{knob} (a TPU memory knob of the JAX "
-                                          "package) is not ported: ROADMAP A12")
+        if self.nce_dtype not in (None, "bf16"):
+            raise ValueError(f"nce_dtype={self.nce_dtype!r}: None or bf16")
 
     def trains(self, net: str) -> bool:
         return self.nets_to_train in (net, "all")
@@ -84,32 +87,35 @@ def warmup_lr(base_lr: float, warm_up_steps: int, count: int) -> np.float32:
     return f(f(-base_lr) * frac + f(base_lr))
 
 
-class AdamW:
-    """The two-group AdamW of `make_optimizer`: `init` makes the moments of
-    the trained nets, `update` applies one step to the parameters in place
-    from their .grad (None counts as zero)."""
+class Adam:
+    """optax's adam / adamw over named nets: `init({name: net})` makes each
+    net's moments, `update(opt_state, {name: net})` applies one step to the
+    parameters in place from their .grad (None counts as zero). Each name
+    has its own lr (`lrs`), each with the linear warm-up of `warmup_lr`
+    (warm_up_steps 0: none); weight decay on every parameter (0: optax.adam,
+    whose arithmetic is the same with the decay term left out); grad_clip > 0
+    clips the global norm of every gradient given to one update."""
 
     b1, b2, eps = 0.9, 0.999, 1e-8
 
-    def __init__(self, cfg: OptimConfig):
-        self.cfg = cfg
-
-    def lr(self, net: str) -> float:
-        return self.cfg.ae_lr if net == "ae" else self.cfg.ist_lr
+    def __init__(self, lrs: Dict[str, float], weight_decay: float = 0.0,
+                 warm_up_steps: int = 0, grad_clip: float = 0.0):
+        self.lrs, self.weight_decay = dict(lrs), weight_decay
+        self.warm_up_steps, self.grad_clip = warm_up_steps, grad_clip
 
     def init(self, nets: Dict[str, nn.Module]) -> Dict:
         return {net: {"count": 0,
                       "mu": {k: torch.zeros_like(p) for k, p in nets[net].named_parameters()},
                       "nu": {k: torch.zeros_like(p) for k, p in nets[net].named_parameters()}}
-                for net in NETS if self.cfg.trains(net)}
+                for net in self.lrs}
 
     @torch.no_grad()
     def update(self, opt_state: Dict, nets: Dict[str, nn.Module]) -> None:
         grads = {net: {k: (p.grad if p.grad is not None else torch.zeros_like(p))
                        for k, p in nets[net].named_parameters()} for net in opt_state}
-        if self.cfg.grad_clip > 0:
-            # optax.clip_by_global_norm over every gradient (the frozen net's are 0)
-            clip = self.cfg.grad_clip
+        if self.grad_clip > 0:
+            # optax.clip_by_global_norm over every gradient (a frozen net's are 0)
+            clip = self.grad_clip
             norm = torch.sqrt(sum((g * g).sum() for gs in grads.values() for g in gs.values()))
             grads = {net: {k: torch.where(norm < clip, g, (g / norm) * clip)
                            for k, g in gs.items()} for net, gs in grads.items()}
@@ -119,20 +125,28 @@ class AdamW:
             t = count + 1
             bc1 = float(f(1) - f(self.b1) ** f(t))
             bc2 = float(f(1) - f(self.b2) ** f(t))
-            neg_lr = -float(warmup_lr(self.lr(net), self.cfg.warm_up_steps, count))
-            wd = self.cfg.weight_decay
+            neg_lr = -float(warmup_lr(self.lrs[net], self.warm_up_steps, count))
+            wd = self.weight_decay
             for k, p in nets[net].named_parameters():
                 g = grads[net][k]
                 mu = torch.add(g * (1 - self.b1), st["mu"][k] * self.b1)
                 nu = torch.add((g * g) * (1 - self.b2), st["nu"][k] * self.b2)
                 st["mu"][k], st["nu"][k] = mu, nu
-                u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps) + wd * p
+                u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
+                if wd:
+                    u = u + wd * p
                 p.add_(neg_lr * u)
             st["count"] = t
 
 
-def make_optimizer(cfg: OptimConfig) -> AdamW:
-    return AdamW(cfg)
+def make_optimizer(cfg: OptimConfig) -> Adam:
+    """The two-group AdamW of the AE trainer: AE at ae_lr, IST at ist_lr,
+    for the nets that cfg.nets_to_train names (the other one is frozen: no
+    update, no decay, no moments), one global-norm clip over both."""
+    return Adam({net: cfg.ae_lr if net == "ae" else cfg.ist_lr
+                 for net in NETS if cfg.trains(net)},
+                weight_decay=cfg.weight_decay, warm_up_steps=cfg.warm_up_steps,
+                grad_clip=cfg.grad_clip)
 
 
 class TrainState:
@@ -179,7 +193,13 @@ def compute_losses(ae_net: nn.Module, ist_net: nn.Module, batch: TrainBatch, ste
     valid = (batch.src_pts[..., 0] >= 0) & (batch.tar_pts[..., 0] >= 0)  # (B, P)
 
     if cfg.trains("ist"):
-        out = ist_net(batch.src_img, batch.tar_img, batch.src_pts, batch.tar_pts)
+        if cfg.fuse_ist_pair:
+            pair = torch.stack([batch.src_img, batch.tar_img], dim=1)
+            feats = ist_net.features(pair.reshape((2 * B,) + pair.shape[2:]))
+            feats = feats.reshape((B, 2) + feats.shape[1:])
+            out = ist_net.regress(feats[:, 0], feats[:, 1], batch.src_pts, batch.tar_pts)
+        else:
+            out = ist_net(batch.src_img, batch.tar_img, batch.src_pts, batch.tar_pts)
         v = (out.valid & valid).reshape(-1)
         pred_scale = out.scale.reshape(-1)
         pred_cossin = out.cossin.reshape(-1, 2)
@@ -208,7 +228,8 @@ def compute_losses(ae_net: nn.Module, ist_net: nn.Module, batch: TrainBatch, ste
             frac = min(max(step / cfg.tau_warmup_steps, 0.0), 1.0)
             tau = cfg.tau_start + (cfg.tau - cfg.tau_start) * frac
         C = src_g.shape[-1]
-        nce = L.info_nce_loss(src_g.reshape(-1, C), tar_g.reshape(-1, C), v, tau=tau)
+        nce = L.info_nce_loss(src_g.reshape(-1, C), tar_g.reshape(-1, C), v, tau=tau,
+                              compute_dtype=torch.bfloat16 if cfg.nce_dtype == "bf16" else None)
         total = total + nce
         vf = v.to(nce.dtype)
         pos = (src_g * tar_g).sum(-1).reshape(-1)

@@ -184,10 +184,14 @@ def test_refine_cli_drops_weak_instances_and_refuses(tmp_path, monkeypatch):
         for megapose in ([], ["refiner_type=megapose"], ["coarse_mode=so3grid"]):
             with pytest.raises(RuntimeError, match="device=cpu"):
                 refine.main(base + megapose)
-    for option, item in (("refiner_checkpoint=ckpt", "A12"),
+    orbax = osp.join(root, "orbax")
+    os.makedirs(osp.join(orbax, "refiner"))  # the JAX trainer's layout
+    for option, item in ((f"refiner_checkpoint={orbax}", "A12"),
                          ("refine_pipeline_chunks=2", "A13c")):
         with pytest.raises(NotImplementedError, match=item):
             refine.main(base + ["device=cpu", option])
+    with pytest.raises(FileNotFoundError, match="ckpt"):  # the port's checkpoint is read
+        refine.main(base + ["device=cpu", f"refiner_checkpoint={root}/ckpt.pt"])
     for option in ("megapose_refiner_ckpt=x", "megapose_coarse_ckpt=x",
                    "refiner_type=megapose", "coarse_mode=so3grid"):
         with pytest.raises(ValueError, match="renders on the host"):  # not "A13b"
