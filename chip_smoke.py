@@ -13,9 +13,10 @@ inputs, twice: with the bf16 AE (`serving_quant=off`) and with the int8 AE
 (`est.quantize_serving()`). Phases, one line each or more:
 
 1. device + build: the card, its power limit, the nvcc builds of the
-   kernels and the host compiler's build of the host rasterizer (one
-   compiler per source, all started together) with ptxas's registers and
-   spills per kernel (any spill fails the run);
+   kernels and the host compiler's builds of the host rasterizer and of the
+   image codecs (csrc/codecs.cpp) (one compiler per source, all started
+   together) with ptxas's registers and spills per kernel (any spill fails
+   the run); phase 17 follows;
 2. the fused matching kernels against their plain PyTorch version on
    planted worlds, at P=16 and at the serving shape B=32, V=162, P=256,
    C=1024: the bf16 wgmma kernel on a bf16 store and the TF32 wgmma kernel
@@ -161,7 +162,13 @@ inputs, twice: with the bf16 AE (`serving_quant=off`) and with the int8 AE
    the served IST's weights and phase 10's launch formula, and the static
    int8 IST of the served checkpoint against its f32 IST (per-descriptor
    cosine on phase 10's first images' detections: the int8 IST on trained
-   weights) ([train_serve]).
+   weights) ([train_serve]); 13.6 training from JPEG shards: 13.1's
+   train_pbr split copied with each rgb PNG replaced by a 480 x 640 JPEG
+   fixture of tests/data/codecs (image im gets fixture im mod 4), turned
+   into tar shards by the port's convert_to_shards, then train.main at
+   model=large, batch 12, TRAIN_JPG_STEPS steps from a TarSceneSource over
+   them: every loss finite, no hand-written kernel, s per step p50 and the
+   loader's wait and its share beside 13.2's ([train_jpg]).
 14. MegaPose refinement on the card, in phase 10's dataset and on phase 11's
    meshes, at the released checkpoints' width (WideResNet-34 width 1.0,
    240 x 320 renders with normals, 500 points, 5 iterations, one rendered
@@ -235,6 +242,14 @@ inputs, twice: with the bf16 AE (`serving_quant=off`) and with the int8 AE
    and from the cache: launches per run (calibration's dynamic forward at
    each onboarding), per-image p50 / p90, the cold run against the
    estimator called directly, the cached csv equal ([ist_cli]).
+17. (right after phase 1) the image decoders on the host: each committed
+   fixture of tests/data/codecs (four 480 x 640 JPEGs, a 1280 x 960 LZW
+   TIFF, a 16-bit RGB and an Adam7 PNG) decoded by the reader's choice by
+   signature, its array's shape, dtype and sha256 against the manifest that
+   PIL wrote; ms per image (p50 of CODEC_REPS) of the q95 4:2:0 JPEG, the
+   TIFF and the JPEG's image as a PNG with adaptive rows; the JPEG's
+   images/s on one thread and on the TrainLoader's worker count; the host
+   CPU's model ([codecs]).
 
 Every kernel count is set to 0 just before a path is driven and read just
 after; launches made to compare a kernel with its plain version are not
@@ -255,6 +270,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import hashlib
 import json
 import os
 import os.path as osp
@@ -274,6 +290,8 @@ import torch.nn.functional as F
 from gigapose_tpu_torch import cli
 from gigapose_tpu_torch import refine as refine_cli
 from gigapose_tpu_torch.dataloader import bop_io
+from gigapose_tpu_torch.dataloader import scene as SCENE
+from gigapose_tpu_torch.dataloader.jpeg import decode_jpeg
 from gigapose_tpu_torch.dataloader.png import decode_png, encode_png
 from gigapose_tpu_torch.dataloader.scene import DirSceneSource
 from gigapose_tpu_torch.dataloader.test_set import InferenceDataset
@@ -314,6 +332,7 @@ from gigapose_tpu_torch.render import templates as TP
 from gigapose_tpu_torch.render.mesh_io import diameter as mesh_diameter
 from gigapose_tpu_torch.render.mesh_io import load_mesh
 from gigapose_tpu_torch.render.rasterizer import Rasterizer
+from gigapose_tpu_torch.scripts import convert_to_shards
 from gigapose_tpu_torch.scripts import eval_bop
 from gigapose_tpu_torch.scripts import render_templates as RT
 from gigapose_tpu_torch.scripts import train_refiner as TRAIN_REFINER
@@ -356,7 +375,7 @@ WIRING_MOVED_COS = 0.9
 TOKENS = 257  # ViT-L/14 at 224 x 224: CLS + 16 x 16 patches, not padded
 INT8_COS_MIN = 0.99
 KERNELS = ("fused_matching", "qmm", "rasterizer", "qconv")
-HOST_SOURCES = ("rasterizer.cpp",)  # built with the host compiler
+HOST_SOURCES = ("rasterizer.cpp", "codecs.cpp")  # built with the host compiler
 # phase 10: test images, detections per test image (image i has
 # CLI_DETECTIONS[i % 6]), and the CLI's chunk (test.yaml's
 # max_num_dets_per_forward)
@@ -372,6 +391,13 @@ CLI_POSE_TOL = dict(rtol=1e-4, atol=1e-3)
 # over the memory rate
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "tf32": 495e12, "f32": 67e12}
 PEAK_BYTES = 3.35e12
+# phase 17: the decoders' fixtures (tests/data/codecs/make_fixtures.py wrote
+# them and the manifest with PIL), decodes per timed file, images per
+# throughput reading
+CODEC_DIR = osp.join(osp.dirname(osp.abspath(__file__)), "tests", "data", "codecs")
+CODEC_MANIFEST = (json.load(open(osp.join(CODEC_DIR, "manifest.json")))
+                  if osp.exists(osp.join(CODEC_DIR, "manifest.json")) else {})
+CODEC_REPS, CODEC_THREAD_IMAGES = 20, 140
 
 
 def log(phase: str, **fields) -> None:
@@ -2283,6 +2309,7 @@ TRAIN_IMAGES, VAL_IMAGES = 40, 10  # 480 x 640, both objects in each
 TRAIN_B = 12  # machine.batch_size of the train config (the reference's local.yaml)
 TRAIN_STEPS, TRAIN_EVERY = 30, 15  # max_steps; checkpoint_every and val_every
 TRAIN_RUN = "train"
+TRAIN_JPG_STEPS = 10  # 13.6: max_steps from the JPEG shards
 PARITY_B, PARITY_STEPS, PARITY_WARM = 2, 3, 2
 SERVE_IMAGES = 40  # phase 10's first images, served from the trained checkpoint
 # 13.3, the card against the host after PARITY_STEPS steps from one init
@@ -2660,11 +2687,82 @@ def trained_int8_ist_cos(cli_root: str, est) -> dict:
     return dict(crops=int(crops.shape[0]), cos_mean=float(cos.mean()), cos_min=float(cos.min()))
 
 
+def phase_train_jpg(e2e_root: str, png_run: dict, smi) -> dict:
+    """13.6: training from JPEG shards, as a train_pbr split is read. 13.1's
+    train_pbr split copied with every rgb/{im}.png replaced by the 480 x 640
+    JPEG fixture im mod 4 (tests/data/codecs: 4:2:0, 4:4:4, 4:2:2 with
+    restart markers, gray), as rgb/{im}.jpg, then turned into tar shards by
+    the port's convert_to_shards; train.main at model=large, batch TRAIN_B,
+    TRAIN_JPG_STEPS steps from a TarSceneSource over them (train_split names
+    the shards' directory). The annotations no longer describe the pixels:
+    this drives the reading path (decode, crop, augment), not learning.
+    Checks: every step ran, every logged loss finite, no hand-written kernel
+    launched. s per step p50 and the loader's wait and its share, beside
+    13.2's PNG run ([train_jpg])."""
+    from gigapose_tpu_torch import train as train_cli
+
+    ds = osp.join(e2e_root, "datasets", "tudl")
+    src, split = osp.join(ds, "train_pbr", "000001"), osp.join(ds, "train_pbr_jpg")
+    jpegs = [n for n in sorted(CODEC_MANIFEST) if n.endswith(".jpg")]
+    check(len(jpegs) == 4, f"JPEG fixtures: {jpegs}")
+    t0 = time.perf_counter()
+    dst = osp.join(split, "000001")
+    shutil.copytree(src, dst, ignore=shutil.ignore_patterns("rgb"))
+    os.makedirs(osp.join(dst, "rgb"))
+    images = sorted(int(n[:6]) for n in os.listdir(osp.join(src, "rgb")))
+    for im in images:
+        shutil.copyfile(osp.join(CODEC_DIR, jpegs[im % len(jpegs)]),
+                        osp.join(dst, "rgb", f"{im:06d}.jpg"))
+    shards = osp.join(ds, "train_pbr_jpg_shards")
+    n = convert_to_shards.main([f"split_dir={split}", f"out_dir={shards}", "shard_size=16"])
+    check(n == len(images), f"convert_to_shards wrote {n} of {len(images)} images")
+    convert_s = time.perf_counter() - t0
+    timing, fit_orig = {}, train_cli.fit
+
+    def fit_timed(*args, **kw):
+        return fit_orig(*args, timing=timing, **kw)
+
+    reset_counts()
+    train_cli.fit = fit_timed
+    t0 = time.perf_counter()
+    try:
+        state = train_cli.main([f"machine.root_dir={e2e_root}", "train_dataset_name=tudl",
+                                "train_split=train_pbr_jpg_shards", "model=large",
+                                f"machine.batch_size={TRAIN_B}", f"max_steps={TRAIN_JPG_STEPS}",
+                                f"checkpoint_every={TRAIN_JPG_STEPS}", "log_every=1",
+                                "run_id=train_jpg"])
+        torch.cuda.synchronize()
+    finally:
+        train_cli.fit = fit_orig
+    run_s = time.perf_counter() - t0
+    launched = counts()
+    check(not any(launched.values()), f"training from JPEG launched hand-written kernels: {launched}")
+    check(state.step == TRAIN_JPG_STEPS, f"training from JPEG stopped at step {state.step}")
+    with open(osp.join(e2e_root, "results", "large_train_jpg", "logs", "metrics.jsonl")) as f:
+        lines = [json.loads(line) for line in f]
+    check(sum("total" in m for m in lines) == TRAIN_JPG_STEPS
+          and all(np.isfinite(v) for m in lines for v in m.values()),
+          "training from JPEG: a step's losses missing or not finite")
+    steps, waits = np.array(timing["step_s"][1:]), np.array(timing["wait_s"][1:])
+    rec = dict(steps=TRAIN_JPG_STEPS, batch=TRAIN_B, images=len(images), shards=len(
+        [f for f in os.listdir(shards) if f.endswith(".tar")]), convert_s=convert_s, run_s=run_s,
+        step_s_p50=float(np.median(steps)), wait_s_p50=float(np.median(waits)),
+        wait_share=float(waits.sum() / steps.sum()), final_total=lines[-1]["total"],
+        png_step_s_p50=png_run["step_s_p50"], png_wait_s_p50=png_run["wait_s_p50"],
+        png_wait_share=png_run["wait_share"])
+    log("train_jpg", **{k: (f"{v:.4g}" if isinstance(v, float) else v) for k, v in rec.items()},
+        card=repr(smi))
+    del state
+    torch.cuda.empty_cache()
+    return rec
+
+
 def phase_training(cli_root: str, dev, smi) -> dict:
     """13. Training on the card, in 12.2's dataset (cli_root/e2e): 13.1 its
     train_pbr and val splits; 13.2 the train CLI at model=large; 13.3 the
     card against the host; 13.4 a resume; 13.5 the coarse CLI serving
-    13.2's checkpoint on phase 10's dataset."""
+    13.2's checkpoint on phase 10's dataset; 13.6 training from JPEG
+    shards."""
     from gigapose_tpu_torch import train as train_cli
 
     e2e_root = osp.join(cli_root, "e2e")
@@ -2684,6 +2782,9 @@ def phase_training(cli_root: str, dev, smi) -> dict:
     with tempfile.TemporaryDirectory(prefix="gigapose_resume_") as tmp:
         rec["resume"] = phase_train_resume(e2e_root, nets, dev, tmp)
     rec["serve"] = phase_train_serve(cli_root, rec["run"]["ckpt_dir"], smi)
+    t0 = time.perf_counter()
+    rec["train_jpg"] = phase_train_jpg(e2e_root, rec["run"], smi)
+    log("train_jpg_phase", seconds=f"{time.perf_counter() - t0:.1f}")
     return rec
 
 
@@ -3786,6 +3887,89 @@ def kernel_records(record, qrec, krec, main_stats, bf16_counts, int8_counts, for
     return kernels
 
 
+def cpu_model() -> str:
+    """The host CPU's model: lscpu's "Model name", else /proc/cpuinfo's
+    "model name", else (where both say "unknown", as a virtual machine may)
+    the vendor, CPUID family and model numbers and the clock they give."""
+    fields = {}
+    try:
+        texts = [subprocess.run(["lscpu"], capture_output=True, text=True, check=True).stdout]
+    except (OSError, subprocess.CalledProcessError):
+        texts = []
+    if osp.exists("/proc/cpuinfo"):
+        texts.append(open("/proc/cpuinfo").read())
+    for text in texts:
+        for line in text.splitlines():
+            key, sep, value = line.partition(":")
+            if sep and value.strip() and value.strip() != "unknown":
+                fields.setdefault(key.strip().lower(), value.strip())
+    if "model name" in fields:
+        return fields["model name"]
+    parts = [fields.get("vendor id", fields.get("vendor_id")),
+             "family " + fields["cpu family"] if "cpu family" in fields else None,
+             "model " + fields["model"] if "model" in fields else None,
+             fields["cpu mhz"] + " MHz" if "cpu mhz" in fields else None]
+    return " ".join(p for p in parts if p) or "unknown"
+
+
+def p50_ms(fn, reps: int) -> float:
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times)) * 1e3
+
+
+def phase_codecs(smi) -> dict:
+    """17. The image decoders on the host (csrc/codecs.cpp, dataloader/png.py),
+    on the committed fixtures of tests/data/codecs: each fixture through the
+    reader's choice by signature (scene._decode_image) against the
+    manifest that PIL wrote (shape, dtype, sha256 of the array: this host's
+    build of codecs.cpp gives PIL's bytes); the ms per image, p50 of
+    CODEC_REPS decodes, of the 480 x 640 q95 4:2:0 JPEG, of the 1280 x 960
+    LZW TIFF and of the JPEG's image as a PNG with adaptive rows (the
+    decoder that ran before); the JPEG's images/s on one thread and on the
+    TrainLoader's worker count (train.yaml's machine.num_workers, capped at
+    the cores - 1, as train.py caps it), whose ratio shows the GIL released
+    during a decode; the host CPU's model ([codecs])."""
+    t0 = time.perf_counter()
+    data = {name: open(osp.join(CODEC_DIR, name), "rb").read() for name in sorted(CODEC_MANIFEST)}
+    check(len(data) == 7, f"the decoders' fixtures: {sorted(data)}")
+    for name, blob in data.items():
+        want = CODEC_MANIFEST[name]
+        got = SCENE._decode_image(blob, name)
+        check(list(got.shape) == want["shape"] and got.dtype.str == want["dtype"]
+              and hashlib.sha256(got.tobytes()).hexdigest() == want["sha256"],
+              f"{name}: the port's decode is not PIL's ({got.shape}, {got.dtype})")
+    jpg, tif = data["jpeg_q95_420.jpg"], data["tiff_lzw_pred2.tif"]
+    png_bytes = encode_png(decode_jpeg(jpg), "adaptive")
+    rec = {"fixtures": len(data), "cpu": cpu_model(), "cores": os.cpu_count()}
+    for tag, blob in (("jpeg_480x640_q95_420", jpg), ("tiff_1280x960_lzw", tif),
+                      ("png_480x640_adaptive", png_bytes)):
+        rec[f"{tag}_ms_p50"] = p50_ms(lambda b=blob: SCENE._decode_image(b), CODEC_REPS)
+    train_cfg = cli.load_cli_config([], ("device",), name="train")
+    workers = max(1, min(int(train_cfg.machine.num_workers), (os.cpu_count() or 2) - 1))
+    n = CODEC_THREAD_IMAGES
+    t = time.perf_counter()
+    for _ in range(n):
+        decode_jpeg(jpg)
+    rec["jpeg_images_per_s_1_thread"] = n / (time.perf_counter() - t)
+    with ThreadPoolExecutor(workers) as pool:
+        list(pool.map(lambda _: decode_jpeg(jpg), range(workers)))  # threads started
+        t = time.perf_counter()
+        list(pool.map(lambda _: decode_jpeg(jpg), range(n)))
+        rec[f"jpeg_images_per_s_{workers}_threads"] = n / (time.perf_counter() - t)
+    rec["workers"] = workers
+    rec["thread_speedup"] = rec[f"jpeg_images_per_s_{workers}_threads"] / rec[
+        "jpeg_images_per_s_1_thread"]
+    rec["seconds"] = time.perf_counter() - t0
+    log("codecs", **{k: (f"{v:.4g}" if isinstance(v, float) else
+                         repr(v).replace(" ", "_") if isinstance(v, str) else v)
+                     for k, v in rec.items()}, card=repr(smi))
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run never runs on the CPU",
@@ -3812,6 +3996,9 @@ def main() -> int:
             registers_spill_stores_loads=repr(report).replace(" ", ""))
         spills = {k: v for k, v in report.items() if v[1] or v[2]}
         check(not spills, f"ptxas spills registers in {spills}")
+
+    # 17. the image decoders on the host, against the fixtures' manifest
+    phase_codecs(smi)
 
     # 2. matching kernel vs plain on planted worlds; 3. int8 kernels vs plain,
     # and each int8 kernel alone at the main path's shapes

@@ -4,13 +4,16 @@ The JAX package decodes its PNGs with PIL, which the machines that run the
 port do not have. This module reads and writes the PNGs of a BOP dataset
 and of a rendered template set:
 
-- `decode_png(data)` reads 8-bit gray, gray + alpha, RGB and RGBA, 16-bit
-  gray (depth maps; big-endian on disk) and palette images (bit depths 1,
-  2, 4 and 8), with all five row filters. The result is what
-  `np.asarray(Image.open(...))` gives for the 8- and 16-bit modes; a palette
-  image comes back expanded to RGB, or to RGBA when it carries a tRNS
-  chunk, as PIL's `convert("RGB")` / `convert("RGBA")` give it. Interlaced
-  images raise.
+- `decode_png(data)` reads every PNG mode: gray at 1, 2, 4, 8 and 16 bits
+  (16-bit: depth maps; big-endian on disk), gray + alpha, RGB and RGBA at 8
+  and 16 bits, palette images (bit depths 1, 2, 4 and 8), with all five row
+  filters, progressive (Adam7-interlaced) or not. The result is what
+  `np.asarray(Image.open(...))` gives: 1-bit gray as bool (PIL's mode 1),
+  2- and 4-bit gray scaled to 8 bits (x 85, x 17), 16-bit gray as uint16,
+  16-bit RGB, RGBA and gray + alpha as the high bytes of their samples (the
+  last widened to RGBA: gray, gray, gray, alpha), as PIL reads them; a
+  palette image comes back expanded to RGB, or to RGBA when it carries a
+  tRNS chunk, as PIL's `convert("RGB")` / `convert("RGBA")` give it.
 - `encode_png(array, filter_type=0)` writes 8-bit gray, gray + alpha, RGB
   and RGBA, and 16-bit gray, with one row filter for every row, one per
   row, or "adaptive": per row the filter whose residual bytes, read as
@@ -36,11 +39,14 @@ import numpy as np
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # color type -> samples per pixel: gray, RGB, palette, gray + alpha, RGBA
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
-_DEPTHS = {0: (8, 16), 2: (8,), 3: (1, 2, 4, 8), 4: (8,), 6: (8,)}
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+# Adam7's seven passes: (first column, first row, column step, row step)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4),
+          (1, 0, 2, 2), (0, 1, 1, 2))
 
 
 def decode_png(data: bytes) -> np.ndarray:
-    """PNG bytes -> (H, W) or (H, W, C) uint8 / uint16 array (see module doc)."""
+    """PNG bytes -> (H, W) or (H, W, C) bool / uint8 / uint16 array (see module doc)."""
     if data[:8] != SIGNATURE:
         raise ValueError("not a PNG file")
     pos, header, idat, palette, trns = 8, None, [], None, None
@@ -61,28 +67,22 @@ def decode_png(data: bytes) -> np.ndarray:
     if header is None:
         raise ValueError("PNG without IHDR")
     width, height, depth, color, compression, filter_method, interlace = header
-    if interlace:
-        raise ValueError("interlaced PNG is not supported")
-    if compression or filter_method or depth not in _DEPTHS.get(color, ()):
-        raise ValueError(f"unsupported PNG: color type {color}, bit depth {depth}")
+    if compression or filter_method or interlace > 1 or depth not in _DEPTHS.get(color, ()):
+        raise ValueError(f"unsupported PNG: color type {color}, bit depth {depth}, "
+                         f"interlace method {interlace}")
     ch = _CHANNELS[color]
-    bits = ch * depth
-    rowbytes = (width * bits + 7) // 8
     raw = zlib.decompress(b"".join(idat))
-    need = height * (rowbytes + 1)
+    passes = _ADAM7 if interlace else ((0, 0, 1, 1),)
+    sizes = [(-(-(width - x0) // dx), -(-(height - y0) // dy)) for x0, y0, dx, dy in passes]
+    need = sum(h * ((w * ch * depth + 7) // 8 + 1) for w, h in sizes if w > 0 and h > 0)
     if len(raw) < need:
         raise ValueError(f"PNG data holds {len(raw)} bytes, {need} expected")
-    rows = np.frombuffer(raw, np.uint8, count=need).reshape(height, rowbytes + 1)
-    pix = unfilter(rows[:, 0], rows[:, 1:], max(1, bits // 8))
+    img = np.empty((height, width, ch), np.uint16 if depth == 16 else np.uint8)
+    offset = 0
+    for (x0, y0, dx, dy), (w, h) in zip(passes, sizes):
+        if w > 0 and h > 0:  # an empty pass has no rows, not even filter bytes
+            img[y0::dy, x0::dx], offset = _samples(raw, offset, w, h, depth, ch)
 
-    if depth == 16:
-        img = pix.view(">u2").astype(np.uint16).reshape(height, width, ch)
-    elif depth == 8:
-        img = pix.reshape(height, width, ch)
-    else:  # palette indices packed 8 / depth per byte, high bits first
-        unpacked = np.unpackbits(pix, axis=1)[:, :width * depth].reshape(height, width, depth)
-        weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
-        img = (unpacked * weights).sum(-1, dtype=np.uint8)[..., None]
     if color == 3:
         if palette is None:
             raise ValueError("palette PNG without PLTE")
@@ -94,7 +94,34 @@ def decode_png(data: bytes) -> np.ndarray:
         alpha = np.full(len(palette), 255, np.uint8)
         alpha[:min(len(trns), len(palette))] = trns[:len(palette)]
         return np.concatenate([palette[idx], alpha[idx][..., None]], axis=-1)
-    return img[..., 0] if ch == 1 else img
+    if color == 0:
+        gray = img[..., 0]
+        if depth == 1:
+            return gray != 0
+        return gray * np.uint8(255 // (2 ** depth - 1)) if depth < 8 else gray
+    if depth == 16:  # PIL keeps the high bytes, and widens gray + alpha to RGBA
+        img = (img >> 8).astype(np.uint8)
+        if color == 4:
+            img = img[..., [0, 0, 0, 1]]
+    return img
+
+
+def _samples(raw: bytes, offset: int, width: int, height: int, depth: int, ch: int):
+    """One (sub-)image's filtered rows at `offset` of the inflated data ->
+    ((height, width, ch) samples, the offset after its rows)."""
+    rowbytes = (width * ch * depth + 7) // 8
+    end = offset + height * (rowbytes + 1)
+    rows = np.frombuffer(raw, np.uint8, count=end - offset, offset=offset).reshape(
+        height, rowbytes + 1)
+    pix = unfilter(rows[:, 0], rows[:, 1:], max(1, ch * depth // 8))
+    if depth == 16:
+        return pix.view(">u2").astype(np.uint16).reshape(height, width, ch), end
+    if depth == 8:
+        return pix.reshape(height, width, ch), end
+    # samples packed 8 / depth per byte, high bits first (one channel)
+    unpacked = np.unpackbits(pix, axis=1)[:, :width * depth].reshape(height, width, depth)
+    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+    return (unpacked * weights).sum(-1, dtype=np.uint8)[..., None], end
 
 
 def unfilter(ftypes: np.ndarray, data: np.ndarray, bpp: int) -> np.ndarray:

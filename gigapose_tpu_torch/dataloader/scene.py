@@ -1,5 +1,6 @@
 """BOP scene reading: directory layout and tar shards, host-side (port of
-gigapose_tpu/dataloader/scene.py, with the numpy PNG codec in place of PIL).
+gigapose_tpu/dataloader/scene.py, with the port's own decoders in place of
+PIL).
 
 The sample contract:
 
@@ -19,9 +20,14 @@ Two sources:
 Samples with visib_fract <= 0.1 are filtered like the reference
 (web_scene_dataset.py:92-99).
 
-Images are decoded by dataloader/png.py: a `.jpg` rgb image or a `.gray.tif`
-raises NotImplementedError (their decoders are ROADMAP A1), and a palette
-PNG comes back as RGB where PIL's np.asarray gives its indices.
+Images are decoded by the decoder their signature names, whatever the
+file's name (DirSceneSource files a `.jpg` under the `rgb.png` key, as the
+JAX package does): PNG by dataloader/png.py, JPEG by dataloader/jpeg.py,
+TIFF by dataloader/tiff.py, each giving PIL's np.asarray. Another signature
+raises ValueError, and so do the files those decoders refuse (ROADMAP A1b).
+A palette PNG comes back as RGB where PIL's np.asarray gives its indices.
+Like the JAX package, DirSceneSource reads ITODD's gray images from
+`rgb/*.tif` (real ITODD keeps them in `gray/`).
 """
 
 from __future__ import annotations
@@ -35,7 +41,7 @@ from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 from gigapose_tpu_torch.dataloader.bop_io import rle_decode, rle_encode
-from gigapose_tpu_torch.dataloader.png import SIGNATURE, decode_png
+from gigapose_tpu_torch.dataloader import jpeg, png, tiff
 from gigapose_tpu_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
@@ -65,17 +71,23 @@ class SceneObservation:
 
 
 def _decode_image(data: bytes, name: str = "image") -> np.ndarray:
-    if name.endswith(".tif") or data[:8] != SIGNATURE:
-        raise NotImplementedError(
-            f"{name} is not a PNG: the port decodes PNG only (JPEG and TIFF are ROADMAP A1)"
-        )
-    return decode_png(data)
+    """An image file's bytes -> PIL's np.asarray, by the file's signature."""
+    if data[:8] == png.SIGNATURE:
+        return png.decode_png(data)
+    if data[:3] == jpeg.SIGNATURE:
+        return jpeg.decode_jpeg(data)
+    if data[:4] in tiff.SIGNATURES:
+        return tiff.decode_tiff(data)
+    raise ValueError(f"{name}: unknown image signature {bytes(data[:8])!r} "
+                     "(the port reads PNG, JPEG and TIFF)")
 
 
 def _to_rgb(img: np.ndarray) -> np.ndarray:
-    """A decoded image as (H, W, 3), as PIL's convert("RGB"): gray and
-    gray + alpha widen to gray x 3, RGBA (also a palette PNG with a tRNS
-    chunk) drops its alpha."""
+    """A decoded image as (H, W, 3): a 2-D image (gray JPEG or TIFF, 16-bit
+    gray, the bool of a 1-bit PNG) repeats to three channels in its own
+    dtype, as the JAX package's _build_obs repeats it; as PIL's
+    convert("RGB"), gray + alpha widens to gray x 3 and RGBA (also a palette
+    PNG with a tRNS chunk) drops its alpha."""
     if img.ndim == 2:
         img = img[..., None]
     if img.shape[-1] in (1, 2):
@@ -265,7 +277,7 @@ class DirSceneSource:
                         if not osp.exists(mp):
                             ok = False
                             break
-                        m = decode_png(_read_bytes(mp)) > 0
+                        m = _decode_image(_read_bytes(mp), mp) > 0
                         rles.append(rle_encode(m.astype(np.uint8)))
                     if ok and rles:
                         parts["mask_visib.json"] = json.dumps(rles).encode()

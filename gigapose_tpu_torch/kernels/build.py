@@ -7,10 +7,11 @@ compiles in seconds without PyTorch's headers:
          -Xcompiler -fPIC -Xptxas -v [EXTRA_NVCC_FLAGS[name]] \
          -o build/gigapose_tpu_torch/<name>-<hash>.so csrc/<name>.cu
 
-A host source ``csrc/<name>.cpp`` (the host rasterizer) is built with the
-host compiler (``$CXX``, else ``g++``) and native/Makefile's flags
-``-O3 -fPIC -shared -std=c++17``, so that it computes what the JAX
-package's build of the same source computes. It is linked with a private
+A host source ``csrc/<name>.cpp`` (the host rasterizer, the image codecs)
+is built with the host compiler (``$CXX``, else ``g++``) and
+native/Makefile's flags ``-O3 -fPIC -shared -std=c++17``, so that the
+rasterizer computes what the JAX package's build of the same source
+computes. It is linked with a private
 copy of the C++ runtime (``-static-libstdc++ -static-libgcc
 -Wl,--exclude-libs,ALL``: only its C entry points are exported): a process
 that already holds another libstdc++, as torch's does, would otherwise bind

@@ -39,6 +39,7 @@ from gigapose_tpu_torch.models import convert
 from gigapose_tpu_torch.pipeline.estimator import GigaPoseEstimator
 from gigapose_tpu_torch.utils.config import load_config
 from tests import synthetic_bop
+from tests.torch_image_formats import reencode_rgb
 
 NAME = "large-pbrreal-rgb-mmodel_tudl-test_{}{}.csv"
 
@@ -104,10 +105,17 @@ def _check_stores(root, bf16):
             assert 0 < (diff > 0).sum() < 1e-2 * diff.size, f
 
 
-@pytest.mark.parametrize("setting,store", [("localization", "bf16"), ("detection", "bf16"),
-                                           ("localization", "f32")])
-def test_cli_writes_the_jax_csvs(tmp_path, jax_weights, setting, store):
+@pytest.mark.parametrize("setting,store,rgb", [
+    pytest.param("localization", "bf16", "png", id="localization-bf16"),
+    pytest.param("detection", "bf16", "png", id="detection-bf16"),
+    pytest.param("localization", "f32", "png", id="localization-f32"),
+    pytest.param("localization", "f32", "jpg", id="localization-f32-jpg")])
+def test_cli_writes_the_jax_csvs(tmp_path, jax_weights, setting, store, rgb):
+    """The last case re-encodes the test image as a JPEG (PIL, quality 95):
+    both CLIs decode it, each with its own decoder."""
     root = synthetic_bop.build(str(tmp_path))
+    if rgb != "png":
+        assert reencode_rgb(osp.join(root, "datasets", "tudl", "test"), rgb) == 1
     common = [f"machine.root_dir={root}", "test_dataset_name=tudl",
               "data.template.num_templates=8", f"test_setting={setting}",
               f"model.feature_dtype={store}"]

@@ -3,9 +3,9 @@
 - the PNG codec (gigapose_tpu_torch/dataloader/png.py) against PIL, on
   PIL-written files of every mode the datasets use, and on files whose
   filtered rows this test writes itself, one row filter at a time;
-- BOP I/O (RLE, csv, the runtime protocol, the npz merge), the scene readers,
-  the inference dataset and the template loader against
-  gigapose_tpu.dataloader;
+- BOP I/O (RLE, csv, the runtime protocol, the npz merge), the scene readers
+  (on PNG, JPEG and TIFF splits), the inference dataset and the template
+  loader against gigapose_tpu.dataloader;
 - the yaml-free config loader against gigapose_tpu.utils.config (PyYAML),
   and the port's copies of the config files against the JAX package's.
 """
@@ -33,6 +33,7 @@ from gigapose_tpu.utils import config as jconfig
 from gigapose_tpu_torch.dataloader import bop_io, png, scene, templates_disk, test_set
 from gigapose_tpu_torch.utils import config
 from tests import synthetic_bop
+from tests.torch_image_formats import reencode_rgb
 
 H, W = 48, 40
 
@@ -158,10 +159,10 @@ def test_encode_png_adaptive_picks_the_least_cost_filter():
 
 
 def test_png_refusals():
-    ihdr = struct.pack(">IIBBBBB", 4, 4, 8, 0, 0, 0, 1)  # interlaced
+    ihdr = struct.pack(">IIBBBBB", 4, 4, 8, 0, 0, 0, 2)  # no such interlace method
     data = png.SIGNATURE + png._chunk(b"IHDR", ihdr) + png._chunk(b"IDAT", zlib.compress(b"")) \
         + png._chunk(b"IEND", b"")
-    with pytest.raises(ValueError, match="interlaced"):
+    with pytest.raises(ValueError, match="interlace method 2"):
         png.decode_png(data)
     with pytest.raises(ValueError, match="not a PNG"):
         png.decode_png(b"\xff\xd8\xff\xe0 a jpeg")
@@ -236,10 +237,12 @@ def _assert_same_fields(got, want):
             assert a == b, f
 
 
-def _webdataset_tar(split_dir: str, tar_dir: str) -> None:
-    """The classic layout's samples as one webdataset shard plus its index."""
+def _webdataset_tar(split_dir: str, tar_dir: str, ext: str = "png") -> None:
+    """The classic layout's samples as one webdataset shard plus its index
+    (the rgb file under rgb.png / rgb.jpg, a gray tif under gray.tif)."""
     os.makedirs(tar_dir)
     index = {}
+    rgb_key = {"png": "rgb.png", "jpg": "rgb.jpg", "tif": "gray.tif"}[ext]
     with tarfile.open(osp.join(tar_dir, "shard-000000.tar"), "w") as tf:
         for obs in jscene.DirSceneSource(split_dir):
             key = obs.key
@@ -247,7 +250,7 @@ def _webdataset_tar(split_dir: str, tar_dir: str) -> None:
             im = f"{obs.im_id:06d}"
             load = lambda name: json.load(open(osp.join(sdir, name)))[str(obs.im_id)]
             parts = {
-                "rgb.png": open(osp.join(sdir, "rgb", im + ".png"), "rb").read(),
+                rgb_key: open(osp.join(sdir, "rgb", f"{im}.{ext}"), "rb").read(),
                 "depth.png": open(osp.join(sdir, "depth", im + ".png"), "rb").read(),
                 "camera.json": json.dumps(load("scene_camera.json")).encode(),
                 "gt.json": json.dumps(load("scene_gt.json")).encode(),
@@ -263,10 +266,16 @@ def _webdataset_tar(split_dir: str, tar_dir: str) -> None:
         json.dump(index, f)
 
 
-def test_scene_sources_and_inference_dataset_match_jax(tmp_path):
+@pytest.mark.parametrize("ext", ["png", "jpg", "tif"])
+def test_scene_sources_and_inference_dataset_match_jax(tmp_path, ext):
+    """On the fixture's PNG splits, and on copies whose rgb images PIL wrote
+    as JPEG and as gray LZW TIFF (tests/torch_image_formats.py)."""
     root = synthetic_bop.build(str(tmp_path))
     ds_root = osp.join(root, "datasets")
     train = osp.join(ds_root, "tudl", "train_pbr")
+    if ext != "png":
+        assert reencode_rgb(train, ext) == 3
+        assert reencode_rgb(osp.join(ds_root, "tudl", "test"), ext) == 1
     got = list(scene.DirSceneSource(train))
     want = list(jscene.DirSceneSource(train))
     assert len(got) == len(want) == 3
@@ -275,7 +284,7 @@ def test_scene_sources_and_inference_dataset_match_jax(tmp_path):
         _assert_same_fields(g, w)
 
     tar_dir = str(tmp_path / "shards")
-    _webdataset_tar(train, tar_dir)
+    _webdataset_tar(train, tar_dir, ext)
     got = list(scene.TarSceneSource(tar_dir, depth_scale=0.5))
     want = list(jscene.TarSceneSource(tar_dir, depth_scale=0.5))
     assert len(got) == len(want) == 3
@@ -292,11 +301,12 @@ def test_scene_sources_and_inference_dataset_match_jax(tmp_path):
         for g, w in zip(got, want):
             _assert_same_fields(g, w)
 
-    jpg = osp.join(ds_root, "tudl", "test", "000001", "rgb")
-    os.rename(osp.join(jpg, "000000.png"), osp.join(jpg, "000000.jpg"))
-    with open(osp.join(jpg, "000000.jpg"), "wb") as f:
-        f.write(b"\xff\xd8\xff\xe0 a jpeg")
-    with pytest.raises(NotImplementedError, match="ROADMAP A1"):
+    rgb_dir = osp.join(ds_root, "tudl", "test", "000001", "rgb")
+    for name in os.listdir(rgb_dir):
+        os.remove(osp.join(rgb_dir, name))
+    with open(osp.join(rgb_dir, "000000.jpg"), "wb") as f:
+        f.write(b"\xff\xd8\xff\xe0 a jpeg")  # a JPEG signature, then no JPEG
+    with pytest.raises(ValueError, match="ROADMAP A1b"):
         list(test_set.InferenceDataset(ds_root, "tudl"))
 
 

@@ -42,6 +42,8 @@ def test_port_imports_no_jax_pil_yaml_or_jax_package():
                      "gigapose_tpu_torch.ops.qmm", "gigapose_tpu_torch.models.vit_int8",
                      "gigapose_tpu_torch.cli", "gigapose_tpu_torch.pipeline.runner",
                      "gigapose_tpu_torch.dataloader.png", "gigapose_tpu_torch.dataloader.bop_io",
+                     "gigapose_tpu_torch.dataloader.jpeg", "gigapose_tpu_torch.dataloader.tiff",
+                     "gigapose_tpu_torch.scripts.convert_to_shards",
                      "gigapose_tpu_torch.dataloader.scene", "gigapose_tpu_torch.dataloader.test_set",
                      "gigapose_tpu_torch.dataloader.templates_disk",
                      "gigapose_tpu_torch.utils.config", "gigapose_tpu_torch.utils.logging",

@@ -1,6 +1,7 @@
 """The port's training data path == the JAX package's (CPU): the PIL-free
 RGB augmentation and template rotation byte for byte against Pillow, the
-host TrainLoader's records on the synthetic fixture, and the device prep
+host TrainLoader's records on the synthetic fixture (its PNG directory, and
+its JPEG re-encoding in the port's tar shards), and the device prep
 (crops, ground-truth correspondences, relative scale and in-plane angle).
 
 Tolerances: augmentation, rotation and the loader's records exactly; the
@@ -24,14 +25,17 @@ from PIL import Image, ImageEnhance, ImageFilter
 from gigapose_tpu.dataloader import augment as JA
 from gigapose_tpu.dataloader import keypoints as JK
 from gigapose_tpu.dataloader.scene import DirSceneSource as JDirSceneSource
+from gigapose_tpu.dataloader.scene import TarSceneSource as JTarSceneSource
 from gigapose_tpu.dataloader.train_set import TrainLoader as JTrainLoader
 from gigapose_tpu.dataloader.train_set import prepare_train_batch as j_prepare
 from gigapose_tpu_torch.dataloader import augment as A
 from gigapose_tpu_torch.dataloader import keypoints as K
-from gigapose_tpu_torch.dataloader.scene import DirSceneSource
+from gigapose_tpu_torch.dataloader.scene import DirSceneSource, TarSceneSource
 from gigapose_tpu_torch.dataloader.train_set import HostTrainRecords, TrainLoader
 from gigapose_tpu_torch.dataloader.train_set import prepare_train_batch
+from gigapose_tpu_torch.scripts import convert_to_shards
 from tests import synthetic_bop
+from tests.torch_image_formats import reencode_rgb
 from tests.torch_train_fixtures import one_torch_thread  # noqa: F401 (a fixture)
 
 
@@ -116,10 +120,15 @@ def test_rotations_byte_equal_for_every_integer_angle():
             assert np.array_equal(A.rotate(depth, float(angle)), want), (h, w, angle)
 
 
-def _loaders(root, workers, seed=11, **kw):
+def _loaders(root, workers, seed=11, shards=None, **kw):
+    """The port's and the JAX package's loaders on the fixture's train_pbr
+    directory, or on the tar shards in `shards`."""
     split = os.path.join(root, "datasets", "tudl", "train_pbr")
     tdir = os.path.join(root, "datasets", "templates", "tudl")
     args = dict(template_dir=tdir, batch_size=2, seed=seed, num_workers=workers, **kw)
+    if shards:
+        return (TrainLoader(scene_source=TarSceneSource(shards), **args),
+                JTrainLoader(scene_source=JTarSceneSource(shards), **args))
     return (TrainLoader(scene_source=DirSceneSource(split), **args),
             JTrainLoader(scene_source=JDirSceneSource(split), **args))
 
@@ -129,11 +138,28 @@ def fixture_root(tmp_path_factory):
     return synthetic_bop.build(str(tmp_path_factory.mktemp("train_data")))
 
 
-@pytest.mark.parametrize("workers", [1, 2])
-def test_train_loader_records_equal_jax(fixture_root, workers):
+@pytest.fixture(scope="module")
+def jpeg_shards(tmp_path_factory):
+    """The fixture's train_pbr split with JPEG rgb images (as every real
+    train_pbr split has), in tar shards of 2 images written by the port's
+    convert_to_shards."""
+    root = synthetic_bop.build(str(tmp_path_factory.mktemp("train_jpg")))
+    split = os.path.join(root, "datasets", "tudl", "train_pbr")
+    reencode_rgb(split, "jpg")
+    shards = os.path.join(root, "shards")
+    convert_to_shards.convert(split, shards, shard_size=2)
+    return root, shards
+
+
+@pytest.mark.parametrize("workers,source", [pytest.param(1, "dir", id="1"),
+                                            pytest.param(2, "dir", id="2"),
+                                            pytest.param(2, "jpeg-shards", id="2-jpeg-shards")])
+def test_train_loader_records_equal_jax(fixture_root, jpeg_shards, workers, source):
     """Two epochs of each loader (its master stream carries on): every
-    field of every batch equal, augmentation and in-plane rotation on."""
-    port, jax_loader = _loaders(fixture_root, workers)
+    field of every batch equal, augmentation and in-plane rotation on; on
+    the PNG directory split and on JPEG tar shards."""
+    root, shards = (fixture_root, None) if source == "dir" else jpeg_shards
+    port, jax_loader = _loaders(root, workers, shards=shards)
     got = [b for _ in range(2) for b in port]
     want = [b for _ in range(2) for b in jax_loader]
     assert len(got) == len(want) == 2
