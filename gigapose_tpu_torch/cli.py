@@ -34,12 +34,23 @@ reads the absent key level_templates and so always renders level 1) on
 the estimator's device: the rasterizer kernel on the card, the host C++
 renderer (test.py's own) on the CPU.
 
-Not served yet, and refused with the ROADMAP item to look up: multi-process
-runs (GIGAPOSE_COORDINATOR / GIGAPOSE_DISTRIBUTED) and store_shards > 1
-(A14), an orbax checkpoint directory of the JAX trainer (A12), the
-retrieval plots of vis_every (A9: they draw with PIL). An
-override whose key the CLI does not read (one of test.py's training or
-loader options) raises ValueError: it would change nothing.
+Several processes (parallel/multihost.py's launch contract:
+GIGAPOSE_COORDINATOR / _NUM_PROCESSES / _PROCESS_ID, or GIGAPOSE_DISTRIBUTED=1
+under torchrun; GIGAPOSE_DIST_BACKEND=gloo for ranks that share a card or
+run on the CPU) split the images round-robin, one card each; with an
+onboarding cache they onboard disjoint objects; process 0 writes the csv.
+store_shards > 1 splits the store's views over that many of the process's
+cards, its own first (device=cpu: the CPU that many times); fewer cards
+raise ValueError. One process given no device= on a machine with more cards
+than its shards use raises NotImplementedError: the JAX package would shard
+the batch over them, the port runs one process per card
+(parallel/mesh.py).
+
+Not served yet, and refused with the ROADMAP item to look up: an orbax
+checkpoint directory of the JAX trainer (A12), the retrieval plots of
+vis_every (A9: they draw with PIL). An override whose key the CLI does not
+read (one of test.py's training or loader options) raises ValueError: it
+would change nothing.
 """
 
 from __future__ import annotations
@@ -55,6 +66,8 @@ from gigapose_tpu_torch.dataloader.test_set import InferenceDataset
 from gigapose_tpu_torch.models.ae_net import AENet
 from gigapose_tpu_torch.models.convert import gigapose_ckpt_to_torch
 from gigapose_tpu_torch.models.ist_net import ISTBackbone, ISTNet, Regressor
+from gigapose_tpu_torch.parallel import multihost
+from gigapose_tpu_torch.parallel.mesh import refuse_batch_mesh
 from gigapose_tpu_torch.pipeline.estimator import (
     EstimatorConfig,
     GigaPoseEstimator,
@@ -78,6 +91,20 @@ def device_of(cfg: Config) -> torch.device:
     """cfg.device if given, else cuda:0; no card and no device raises."""
     return resolve_device(str(cfg.device) if cfg.get("device") else None, "the CLI",
                           "device=cpu")
+
+
+def shard_devices(device: torch.device, shards: int):
+    """The devices of a store split in `shards`: that many of the process's
+    cards, `device` first, then the next ones (cyclically); on the CPU the
+    CPU `shards` times. None for one shard. Fewer cards than shards raise."""
+    if shards <= 1:
+        return None
+    if device.type != "cuda":
+        return [device] * shards
+    n = torch.cuda.device_count()
+    if n < shards:
+        raise ValueError(f"store_shards={shards} needs {shards} cards; this process sees {n}")
+    return [torch.device("cuda", (device.index + i) % n) for i in range(shards)]
 
 
 def template_renderer(device: torch.device) -> str:
@@ -196,9 +223,7 @@ def load_cli_config(argv, optional_keys, name: str = "test") -> Config:
     """The `name` config with `argv`'s overrides (default sys.argv[1:]);
     `model=<name>` picks the model group file. An override of a key that is
     neither in the config files nor in `optional_keys` raises ValueError: it
-    would change nothing. Multi-process runs raise NotImplementedError."""
-    if os.environ.get("GIGAPOSE_COORDINATOR") or os.environ.get("GIGAPOSE_DISTRIBUTED") == "1":
-        raise NotImplementedError("multi-process runs are ROADMAP A14")
+    would change nothing."""
     overrides = list(argv if argv is not None else sys.argv[1:])
     # hydra-style group selection: model=small swaps the model group file
     group_sel = [o.split("=", 1)[1] for o in overrides if o.startswith("model=")]
@@ -214,7 +239,8 @@ def load_cli_config(argv, optional_keys, name: str = "test") -> Config:
 
 def main(argv=None) -> CoarseRunner:
     """Run the CLI on `argv` (default sys.argv[1:]); returns the runner,
-    whose `timing` holds onboarding and run times."""
+    whose `timing` holds onboarding and run times (this process's)."""
+    multihost.maybe_initialize()  # before any CUDA call
     cfg = load_cli_config(argv, OPTIONAL_KEYS)
     if cfg.get("vis_every"):
         raise NotImplementedError(
@@ -224,8 +250,8 @@ def main(argv=None) -> CoarseRunner:
     ds = cfg.test_dataset_name
     if not ds:
         raise ValueError("test_dataset_name=... is required")
-    if int(cfg.get("store_shards") or 1) > 1:
-        raise NotImplementedError("store_shards > 1 (a view-sharded store) is ROADMAP A14")
+    shards = int(cfg.get("store_shards") or 1)
+    refuse_batch_mesh(bool(cfg.get("device")), shards)
     root = osp.join(cfg.machine.root_dir, "datasets")
     save_dir = cfg.get("save_dir") or osp.join(
         cfg.machine.root_dir, "results", f"{cfg.model.model_name}_{cfg.run_id}"
@@ -239,14 +265,18 @@ def main(argv=None) -> CoarseRunner:
         root, "templates", ds
     )
     cad_dir = osp.join(root, ds, "models")
-    if not osp.isdir(template_dir) and osp.isdir(cad_dir):
-        from gigapose_tpu_torch.scripts import render_templates
+    # process 0 decides, renders and tells the others
+    if multihost.broadcast_object(not osp.isdir(template_dir) and osp.isdir(cad_dir)):
+        if multihost.is_primary():
+            from gigapose_tpu_torch.scripts import render_templates
 
-        renderer = template_renderer(est.device)
-        print(f"No template set at {template_dir}; rendering from {cad_dir}")
-        render_templates.main([f"cad_dir={cad_dir}", f"out_dir={template_dir}",
-                               f"level={int(cfg.data.template.level)}", f"renderer={renderer}"]
-                              + ([f"device={est.device}"] if renderer == "device" else []))
+            renderer = template_renderer(est.device)
+            print(f"No template set at {template_dir}; rendering from {cad_dir}")
+            render_templates.main(
+                [f"cad_dir={cad_dir}", f"out_dir={template_dir}",
+                 f"level={int(cfg.data.template.level)}", f"renderer={renderer}"]
+                + ([f"device={est.device}"] if renderer == "device" else []))
+        multihost.barrier()
     runner = CoarseRunner.onboard(
         est,
         template_dir=template_dir,
@@ -257,6 +287,8 @@ def main(argv=None) -> CoarseRunner:
         max_dets_per_forward=cfg.get("max_num_dets_per_forward"),
         feature_dtype=torch.bfloat16 if str(cfg.model.get("feature_dtype", "")) == "bf16" else None,
         cache_tag=_cache_tag(cfg, est),
+        store_shards=shards,
+        shard_devices=shard_devices(est.device, shards),
     )
     dataset = InferenceDataset(
         root_dir=root, dataset_name=ds, test_setting=cfg.test_setting,
@@ -269,7 +301,8 @@ def main(argv=None) -> CoarseRunner:
         run_id=cfg.run_id,
         max_images=cfg.get("max_images"),
     )
-    print("Wrote:", *paths, sep="\n  ")
+    if paths:  # process 0 merges
+        print("Wrote:", *paths, sep="\n  ")
     return runner
 
 

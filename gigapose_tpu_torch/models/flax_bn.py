@@ -7,18 +7,40 @@ mean and its biased variance E[x^2] - mean^2 (floored at 0), computed in f32,
 and moves the running statistics to them at momentum 0.9 (running = 0.9
 running + 0.1 batch); nn.BatchNorm2d would store the unbiased variance.
 A net cast to f64 normalizes in f64 (an f64 reference of its gradient).
+
+Inside `statistics_across_ranks()`, in a multi-process run, the training-mode
+statistics are those of every process's batch together, as flax's are over
+the JAX package's dp-sharded global batch: the per-channel sums, sums of
+squares and counts are summed over the processes (their gradient too), so
+the running statistics stay the same on every process.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+import contextvars
+from typing import Iterator, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from gigapose_tpu_torch.parallel import multihost
+
 # flax BatchNorm's momentum: running = momentum * running + (1 - momentum) * batch
 BN_MOMENTUM = 0.9
+_ACROSS_RANKS = contextvars.ContextVar("flax_bn_across_ranks", default=False)
+
+
+@contextlib.contextmanager
+def statistics_across_ranks(on: bool = True) -> Iterator[None]:
+    """Training-mode BatchNorm inside the block takes its statistics over
+    every process's batch (nothing changes in one process)."""
+    token = _ACROSS_RANKS.set(on)
+    try:
+        yield
+    finally:
+        _ACROSS_RANKS.reset(token)
 
 
 def batch_norm(layer: nn.BatchNorm2d, x: torch.Tensor,
@@ -33,8 +55,16 @@ def batch_norm(layer: nn.BatchNorm2d, x: torch.Tensor,
         y = F.batch_norm(x, layer.running_mean, layer.running_var, layer.weight, layer.bias,
                          False, 0.0, layer.eps)
     else:
-        mean = x.mean(dim=(0, 2, 3))
-        var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        if _ACROSS_RANKS.get() and multihost.process_count() > 1:
+            C = x.shape[1]
+            sums = multihost.all_reduce_sum(torch.cat([
+                x.sum(dim=(0, 2, 3)), (x * x).sum(dim=(0, 2, 3)),
+                x.new_full((1,), x.numel() // C)]))
+            mean = sums[:C] / sums[2 * C]
+            var = torch.clamp(sums[C:2 * C] / sums[2 * C] - mean * mean, min=0.0)
+        else:
+            mean = x.mean(dim=(0, 2, 3))
+            var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
         with torch.no_grad():
             layer.running_mean.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * mean)
             layer.running_var.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * var)

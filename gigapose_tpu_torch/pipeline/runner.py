@@ -10,8 +10,12 @@
    score, gigaPose.py:400-449),
 4. write per-image npz with the BOP timing fields and merge them into csv.
 
-Not ported yet: a sharded store or a device mesh and multi-process runs
-(ROADMAP A14); the CLI refuses them.
+store_shards > 1 splits the store's views over a list of devices
+(parallel/sharded_store.py). In a multi-process run (parallel/multihost.py)
+the images go round-robin to the processes, process 0 clears the old npz
+files and merges everyone's; with a cache tag the processes onboard
+disjoint objects and process 0 merges them into the cache (process 0 alone
+decides whether the cache exists, and tells the others).
 """
 
 from __future__ import annotations
@@ -19,8 +23,9 @@ from __future__ import annotations
 import dataclasses
 import os
 import os.path as osp
+import shutil
 import time
-from typing import Dict, Iterable, Iterator, List, Optional
+from typing import Dict, Iterable, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -34,6 +39,12 @@ from gigapose_tpu_torch.dataloader.templates_disk import (
 from gigapose_tpu_torch.dataloader.test_set import ImageDetections
 from gigapose_tpu_torch.ops.crop import crop_resize_pad
 from gigapose_tpu_torch.ops.matching import downsample_mask
+from gigapose_tpu_torch.parallel import multihost
+from gigapose_tpu_torch.parallel.sharded_store import (
+    ShardedStore,
+    coarse_forward_sharded,
+    shard_template_store,
+)
 from gigapose_tpu_torch.pipeline.estimator import DetectionBatch, GigaPoseEstimator
 from gigapose_tpu_torch.pipeline.templates import (
     TemplateStore,
@@ -112,6 +123,14 @@ def _timed(items: Iterable, timing: Dict[str, float]) -> Iterator:
         yield item
 
 
+def _host_fields(store: TemplateStore) -> Dict[str, np.ndarray]:
+    """A store's arrays as the cache holds them: features in f32 (npz has no
+    bf16), the rest in their own dtype."""
+    return {f.name: getattr(store, f.name).to(
+        torch.float32 if "features" in f.name else getattr(store, f.name).dtype).cpu().numpy()
+        for f in dataclasses.fields(store)}
+
+
 @dataclasses.dataclass
 class CoarseRunner:
     estimator: GigaPoseEstimator
@@ -127,6 +146,28 @@ class CoarseRunner:
     timing: Dict[str, float] = dataclasses.field(default_factory=dict)
     # where the store's objects came from (named when a label is not among them)
     template_dir: Optional[str] = None
+    # > 1: the store's views split over `shard_devices` (one shard each; the
+    # estimator's device store_shards times when not given)
+    store_shards: int = 1
+    shard_devices: Optional[Sequence] = None
+
+    def __post_init__(self):
+        if self.store_shards > 1 and not isinstance(self.store, ShardedStore):
+            devices = list(self.shard_devices or [self.estimator.device] * self.store_shards)
+            if len(devices) != self.store_shards:
+                raise ValueError(f"store_shards={self.store_shards} with {len(devices)} "
+                                 "shard devices")
+            self.store = shard_template_store(self.store, devices, home=self.estimator.device)
+
+    def _forward(self, batch: DetectionBatch):
+        """The estimator on the whole store, or the view-sharded pipeline (the
+        same outputs; parallel/sharded_store.py)."""
+        if isinstance(self.store, ShardedStore):
+            est = self.estimator
+            with torch.inference_mode():
+                return coarse_forward_sharded(est.ae_net, est.ist_net, self.store, batch,
+                                              est.config)
+        return self.estimator(self.store, batch)
 
     @classmethod
     def onboard(
@@ -146,7 +187,11 @@ class CoarseRunner:
         read from / written to <template_dir>/onboarded_<tag>.npz, features as
         f32 (npz has no bf16), re-cast to feature_dtype on load; the file is
         written under another name and renamed, so that a reader never
-        finds a partial cache."""
+        finds a partial cache. In a multi-process run with a cache tag,
+        process 0 decides whether the cache exists and tells the others;
+        a missing cache is onboarded by all processes together
+        (`_onboard_distributed`). With store_shards > 1 a cached store is
+        read to the host and sharded from there."""
         timer = Timer().tic()
         device = estimator.device
         # static int8 IST scales are calibrated before any feature is
@@ -162,13 +207,20 @@ class CoarseRunner:
                         onboard_cached=cached, objects=int(store.K.shape[0])),
             **kwargs,
         )
-        if cache_path and osp.exists(cache_path):
+        cached = bool(cache_path) and osp.exists(cache_path)
+        if cache_path and multihost.process_count() > 1:
+            cached = multihost.broadcast_object(cached)
+            if not cached:
+                cls._onboard_distributed(estimator, template_dir, cache_path, num_templates,
+                                         scale_factor, feature_dtype)
+        if cache_path and (cached or multihost.process_count() > 1):
+            load_to = "cpu" if int(kwargs.get("store_shards") or 1) > 1 else device
             with np.load(cache_path) as data:
-                fields = {k: torch.as_tensor(data[k]).to(device) for k in data.files}
+                fields = {k: torch.as_tensor(data[k]).to(load_to) for k in data.files}
             if feature_dtype is not None:
                 for k in ("ae_features", "ist_features"):
                     fields[k] = fields[k].to(feature_dtype)
-            runner = make(TemplateStore(**fields), True)
+            runner = make(TemplateStore(**fields), cached)
             logger.info(f"Loaded onboarded store from {cache_path}")
             return runner
         obj_ids = list_objects(template_dir)
@@ -178,20 +230,68 @@ class CoarseRunner:
                                          as_uint8=True)  # 4x less host -> device traffic
             rgbas.append(data["rgba"])
             poses.append(data["poses"])
-        store = onboard_templates(estimator.ae_apply, estimator.ist_apply, rgbas, poses, device,
-                                  feature_dtype=feature_dtype or torch.float32)
+        onboard = lambda rs, ps: onboard_templates(estimator.ae_apply, estimator.ist_apply, rs,
+                                                   ps, device,
+                                                   feature_dtype=feature_dtype or torch.float32)
+        if int(kwargs.get("store_shards") or 1) > 1:
+            # a store to shard is gathered on the host, one object at a time:
+            # the whole store never sits on one card
+            parts = []
+            for r, p in zip(rgbas, poses):
+                q = onboard([r], [p])
+                parts.append({f.name: getattr(q, f.name).cpu() for f in dataclasses.fields(q)})
+            store = TemplateStore(**{k: torch.cat([q[k] for q in parts]) for k in parts[0]})
+        else:
+            store = onboard(rgbas, poses)
         runner = make(store, False)
         dt = runner.timing["onboard_s"]
         logger.info(f"Onboarded {len(obj_ids)} objects in {dt:.1f}s "
                     f"({dt / max(len(obj_ids), 1):.2f} s/object)")
         if cache_path:
-            save_npz_atomic(cache_path, **{
-                f.name: getattr(store, f.name).to(
-                    torch.float32 if "features" in f.name else getattr(store, f.name).dtype
-                ).cpu().numpy()
-                for f in dataclasses.fields(store)})
+            save_npz_atomic(cache_path, **_host_fields(store))
             logger.info(f"Saved onboarded store to {cache_path}")
         return runner
+
+    @staticmethod
+    def _onboard_distributed(
+        estimator: GigaPoseEstimator,
+        template_dir: str,
+        cache_path: str,
+        num_templates: Optional[int] = None,
+        scale_factor: float = 1.0,
+        feature_dtype: Optional[torch.dtype] = None,
+    ) -> None:
+        """Onboarding by all processes: a round-robin split of the objects
+        (multihost.split_work), one part file per object (features in f32,
+        as the cache holds them) written by its process into
+        <cache>.parts/, then process 0 merges the parts in object order
+        into the cache (atomically) and removes them. Every process returns
+        after the merge. The parts hold exactly what one process would
+        onboard (each object is onboarded alone), so the cache is the
+        one-process cache."""
+        obj_ids = list_objects(template_dir)
+        parts_dir = cache_path + ".parts"
+        os.makedirs(parts_dir, exist_ok=True)
+        part = lambda obj_id: osp.join(parts_dir, f"obj_{obj_id:06d}.npz")
+        for obj_id in multihost.split_work(obj_ids):
+            data = load_object_templates(template_dir, obj_id, num_templates, scale_factor,
+                                         as_uint8=True)
+            store = onboard_templates(estimator.ae_apply, estimator.ist_apply, [data["rgba"]],
+                                      [data["poses"]], estimator.device,
+                                      feature_dtype=feature_dtype or torch.float32)
+            save_npz_atomic(part(obj_id), **{k: v[0] for k, v in _host_fields(store).items()})
+        multihost.barrier()
+        if multihost.is_primary():
+            fields: Dict[str, list] = {}
+            for obj_id in obj_ids:
+                with np.load(part(obj_id)) as p:
+                    for k in p.files:
+                        fields.setdefault(k, []).append(p[k])
+            save_npz_atomic(cache_path, **{k: np.stack(v) for k, v in fields.items()})
+            shutil.rmtree(parts_dir, ignore_errors=True)
+            logger.info(f"Merged {len(obj_ids)} objects onboarded by "
+                        f"{multihost.process_count()} processes into {cache_path}")
+        multihost.barrier()
 
     @staticmethod
     def _maybe_calibrate_ist(
@@ -267,26 +367,35 @@ class CoarseRunner:
         im_id, object_id, poses (n, k, 4, 4), scores (n, k), time,
         detection_time) and view_ids (n, k). Adds images, detections,
         forwards, decode_s (host time inside the dataset's iterator) and
-        run_s to `timing`."""
+        run_s to `timing`. In a multi-process run each process takes the
+        images whose index is its process index modulo the process count
+        (images and detections count its own), and process 0 alone clears
+        and merges: the others return no path."""
         pred_dir = osp.join(self.save_dir, "predictions")
         os.makedirs(pred_dir, exist_ok=True)
-        # drop stale batches of earlier runs: the merge globs *.npz
-        for f in os.listdir(pred_dir):
-            if f.endswith(".npz"):
-                os.remove(osp.join(pred_dir, f))
+        # drop stale batches of earlier runs (the merge globs *.npz), on
+        # process 0 only and before any process writes
+        if multihost.is_primary():
+            for f in os.listdir(pred_dir):
+                if f.endswith(".npz"):
+                    os.remove(osp.join(pred_dir, f))
+        multihost.barrier()
+        proc_id, n_proc = multihost.process_index(), multihost.process_count()
         stats = dict(images=0, detections=0, forwards=0, decode_s=0.0)
         t_run = time.perf_counter()
         timer = Timer()
         for idx_batch, image in enumerate(_timed(dataset, stats)):
             if max_images is not None and idx_batch >= max_images:
                 break
+            if idx_batch % n_proc != proc_id:
+                continue
             timer.tic()
             N = len(image.labels)
             chunk = self.max_dets_per_forward or N
             outs = {"poses": [], "scores": [], "view_ids": []}
             for s in range(0, N, chunk):
                 sel = np.arange(s, min(s + chunk, N))
-                pred = self.estimator(self.store, self.prepare_batch(image, sel))
+                pred = self._forward(self.prepare_batch(image, sel))
                 for name, out in outs.items():
                     t = getattr(pred, name)[: len(sel)]  # scores are bf16 on a bf16 store
                     out.append((t.float() if t.is_floating_point() else t).cpu().numpy())
@@ -318,6 +427,9 @@ class CoarseRunner:
         stats["run_s"] = time.perf_counter() - t_run
         self.timing.update(stats)
         logger.info(f"Ran coarse inference on {stats['images']} images")
+        multihost.barrier()  # every process's npz files exist before the merge
+        if not multihost.is_primary():
+            return []
         return bop_io.merge_batched_predictions(
             pred_dir, self.dataset_name, model_name, run_id, is_refined=False
         )

@@ -43,7 +43,11 @@ must be those of the refiner built here (full width, or GIGAPOSE_TINY's),
 and with the MegaPose refiner it raises (that refiner reads
 megapose_*_ckpt). Refused, with the ROADMAP item to look up: a JAX orbax
 refiner checkpoint (A12); refine_pipeline_chunks above 1, the pipelined host
-loop (A13c); multi-process runs (A14).
+loop (A13c).
+
+Several processes (parallel/multihost.py's launch contract, as the coarse
+CLI) split the images round-robin, one card each; process 0 writes the csv
+and the others return no path.
 """
 
 from __future__ import annotations
@@ -54,6 +58,7 @@ from typing import Dict, List, Tuple
 
 from gigapose_tpu_torch.cli import device_of, load_cli_config
 from gigapose_tpu_torch.dataloader.scene import DirSceneSource, TarSceneSource
+from gigapose_tpu_torch.parallel import multihost
 from gigapose_tpu_torch.refiner.checkpoint import load_refiner_checkpoint
 from gigapose_tpu_torch.refiner.megapose_refiner import MegaposeRefiner, MegaposeRefinerConfig
 from gigapose_tpu_torch.refiner.refiner import RefinerConfig, RenderCompareRefiner
@@ -117,7 +122,8 @@ def build_megapose_refiner(cfg: Config, mesh_paths: Dict[int, str], tiny: bool =
 def main(argv=None) -> Tuple[List[str], Dict]:
     """Run the CLI on `argv` (default sys.argv[1:]) -> (the refined csv
     paths, the run's timing: images, hypotheses (csv mode) or detections
-    (so3grid), seconds per image, run seconds)."""
+    (so3grid), seconds per image, run seconds; this process's)."""
+    multihost.maybe_initialize()  # before any CUDA call
     cfg = load_cli_config(argv, OPTIONAL_KEYS)
     ds = cfg.test_dataset_name
     if not ds:
@@ -169,7 +175,8 @@ def main(argv=None) -> Tuple[List[str], Dict]:
                 min_score=cfg["min_score"] if "min_score" in cfg else 0.25, **common)
     finally:
         refiner.meshes.close()
-    print("Wrote:", *paths, sep="\n  ")
+    if paths:  # process 0 merges
+        print("Wrote:", *paths, sep="\n  ")
     return paths, timing
 
 

@@ -1,5 +1,4 @@
-"""Refinement runners -> refined BOP csv (port of gigapose_tpu/refiner/runner.py,
-one process).
+"""Refinement runners -> refined BOP csv (port of gigapose_tpu/refiner/runner.py).
 
 - run_refinement: per image, the coarse hypotheses (top-1 csv or the top-k
   MultiHypothesis csv), refined in chunks of `chunk_size` by any refiner
@@ -11,7 +10,12 @@ one process).
   SO(3)-grid classification (the best grid rotation per detection), then
   its refinement; score = the pose score.
 
-One npz per image, merged into the refined csv.
+One npz per image, merged into the refined csv. In a multi-process run
+(parallel/multihost.py) the images go round-robin to the processes (image
+i to process i mod count, counting the images the source yields), process 0
+clears the old npz files before anyone writes and merges everyone's after
+all are done; the other processes return no path. max_images counts the
+images of every process.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from gigapose_tpu_torch.dataloader import bop_io
+from gigapose_tpu_torch.parallel import multihost
 from gigapose_tpu_torch.utils.logging import get_logger
 from gigapose_tpu_torch.utils.timer import Timer
 
@@ -60,11 +65,28 @@ def load_hypotheses(init_loc_path: str, min_score: float) -> Dict[str, List[Dict
 
 
 def _clear_npz(pred_dir: str) -> None:
-    """Stale batches of earlier runs go: the merge globs *.npz."""
+    """Stale batches of earlier runs go (the merge globs *.npz): on process 0,
+    before any process writes."""
     os.makedirs(pred_dir, exist_ok=True)
-    for f in os.listdir(pred_dir):
-        if f.endswith(".npz"):
-            os.remove(osp.join(pred_dir, f))
+    if multihost.is_primary():
+        for f in os.listdir(pred_dir):
+            if f.endswith(".npz"):
+                os.remove(osp.join(pred_dir, f))
+    multihost.barrier()
+
+
+def _merge(pred_dir: str, dataset_name: str, model_name: str, run_id) -> List[str]:
+    """The refined csv, merged by process 0 once every process has written
+    its npz files; [] on the others."""
+    multihost.barrier()
+    if not multihost.is_primary():
+        return []
+    return bop_io.merge_batched_predictions(pred_dir, dataset_name, model_name, run_id,
+                                            is_refined=True)
+
+
+def _mine(batch_id: int) -> bool:
+    return batch_id % multihost.process_count() == multihost.process_index()
 
 
 def _observations(scene_source, keys):
@@ -114,12 +136,16 @@ def run_refinement(refiner, scene_source, init_loc_path: str,
     _clear_npz(pred_dir)
     stats = dict(images=0, hypotheses=0, image_s=[])
     timer, run_timer = Timer(), Timer().tic()
+    seen = 0  # images with rows, of every process
     for batch_id, obs in enumerate(_observations(scene_source, locs_per_image)):
         rows = locs_per_image.get(obs.key, [])
         if not rows:
             continue
-        if max_images is not None and stats["images"] >= max_images:
+        if max_images is not None and seen >= max_images:
             break
+        seen += 1
+        if not _mine(batch_id):
+            continue
         timer.tic()
         img = obs.rgb.astype(np.float32).transpose(2, 0, 1)[None] / 255.0
         B = len(rows)
@@ -163,8 +189,7 @@ def run_refinement(refiner, scene_source, init_loc_path: str,
     if timing is not None:
         timing.update(stats)
     logger.info(f"Refined {stats['images']} images")
-    return bop_io.merge_batched_predictions(pred_dir, dataset_name, model_name, run_id,
-                                            is_refined=True)
+    return _merge(pred_dir, dataset_name, model_name, run_id)
 
 
 def run_so3_coarse_refinement(refiner, scene_source, root_dir: str, save_dir: str,
@@ -185,12 +210,16 @@ def run_so3_coarse_refinement(refiner, scene_source, root_dir: str, save_dir: st
     _clear_npz(pred_dir)
     stats = dict(images=0, detections=0, image_s=[])
     timer, run_timer = Timer(), Timer().tic()
+    seen = 0  # images with detections, of every process
     for batch_id, obs in enumerate(_observations(scene_source, dets_per_image)):
         dets = dets_per_image.get(obs.key, [])
         if not dets:
             continue
-        if max_images is not None and stats["images"] >= max_images:
+        if max_images is not None and seen >= max_images:
             break
+        seen += 1
+        if not _mine(batch_id):
+            continue
         dets = sorted(dets, key=lambda d: -d.get("score", 0.0))[:max_dets_per_image]
         timer.tic()
         img = obs.rgb.astype(np.float32).transpose(2, 0, 1)[None] / 255.0
@@ -226,5 +255,4 @@ def run_so3_coarse_refinement(refiner, scene_source, root_dir: str, save_dir: st
     if timing is not None:
         timing.update(stats)
     logger.info(f"SO(3)-grid ({grid_size}) classified and refined {stats['images']} images")
-    return bop_io.merge_batched_predictions(pred_dir, dataset_name, model_name, run_id,
-                                            is_refined=True)
+    return _merge(pred_dir, dataset_name, model_name, run_id)

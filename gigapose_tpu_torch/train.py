@@ -15,7 +15,15 @@ no device it raises. The nets start from seeded random weights (`seed`);
 `pretrained_ist_path=` (or model.ist_net.pretrained_weights) warm-starts
 the IST from a torch state dict by name. Several datasets in
 train_dataset_name are interleaved batch by batch. `GIGAPOSE_TINY=1` gives
-train.py's tiny nets. Multi-process training raises (ROADMAP A14).
+train.py's tiny nets.
+
+Several processes (parallel/multihost.py's launch contract) train as one
+global batch of machine.batch_size rows per process, one card each: each
+process's loader draws from its own seed (seed + dataset index + 1000003 x
+process id, as train.py), and process 0 writes the checkpoints and metrics
+(training/loop.py). One process given no device= on a machine with several
+cards raises: the JAX package would shard its batch over them
+(parallel/mesh.py).
 """
 
 from __future__ import annotations
@@ -33,6 +41,8 @@ from gigapose_tpu_torch.models.ae_net import AENet
 from gigapose_tpu_torch.models.ist_net import (
     ISTBackbone, ISTNet, Regressor, default_ist_net,
 )
+from gigapose_tpu_torch.parallel import multihost
+from gigapose_tpu_torch.parallel.mesh import refuse_batch_mesh
 from gigapose_tpu_torch.pipeline.estimator import init_random_, set_f32_matmul_precision
 from gigapose_tpu_torch.training.loop import FitConfig, fit
 from gigapose_tpu_torch.training.state import OptimConfig, TrainState
@@ -75,7 +85,9 @@ def build_nets(cfg, tiny: bool):
 
 
 def main(argv=None) -> TrainState:
+    proc_id, _ = multihost.maybe_initialize()  # before any CUDA call
     cfg = load_cli_config(argv, OPTIONAL_KEYS, name="train")
+    refuse_batch_mesh(bool(cfg.get("device")))
     device = resolve_device(str(cfg.device) if cfg.get("device") else None, "the trainer",
                             "device=cpu")
     set_f32_matmul_precision()
@@ -98,7 +110,8 @@ def main(argv=None) -> TrainState:
                            template_scale_factor=cfg.data.template.scale_factor, seed=seed,
                            num_workers=workers)
 
-    loaders = [make_loader(n, cfg.seed + i) for i, n in enumerate(ds_names)]
+    # each process draws its own rows (the webdataset split_by_node of the reference)
+    loaders = [make_loader(n, cfg.seed + i + 1000003 * proc_id) for i, n in enumerate(ds_names)]
     loader = loaders[0] if len(loaders) == 1 else Interleaved(loaders)
 
     val_loader = None
@@ -140,7 +153,8 @@ def main(argv=None) -> TrainState:
         resume=bool(cfg.get("resume")), val_loader=val_loader, warm_start=warm_start,
         tensorboard=bool(cfg.get("log_tensorboard")),
     )
-    print(f"Training done at step {state.step}; checkpoints in {save_dir}/checkpoints")
+    if multihost.is_primary():
+        print(f"Training done at step {state.step}; checkpoints in {save_dir}/checkpoints")
     return state
 
 

@@ -1,10 +1,16 @@
 """Training loop: host loader -> device prep -> step -> metrics, validation
 and checkpoints (port of gigapose_tpu/training/loop.py).
 
-One process on one device. A resumed run restores the state of the last
+One device per process. A resumed run restores the state of the last
 checkpoint and replays the loader up to its step, so it sees the batches a
 straight run would see (the host pays for the replayed batches again; the
 device does no work for them).
+
+In a multi-process run (parallel/multihost.py) each process feeds its own
+loader and the processes step as one global batch (training/state.py:
+train_step); the weights start as process 0's (broadcast), checkpoints,
+metrics, TensorBoard and validation are process 0's alone, and a resume
+restores the checkpoint on every process.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ import torch
 import torch.distributed as dist
 
 from gigapose_tpu_torch.dataloader.train_set import HostTrainRecords, prepare_train_batch
+from gigapose_tpu_torch.parallel import multihost
 from gigapose_tpu_torch.training import checkpoint as ckpt_lib
 from gigapose_tpu_torch.training.state import OptimConfig, TrainState, train_step
 from gigapose_tpu_torch.training.validate import validation_metrics
@@ -85,13 +92,17 @@ def fit(
     the nets before the first step; `resume` continues from the newest
     checkpoint in fit_cfg.ckpt_dir. With `timing` (a dict), each step ends
     in a device synchronize and timing gets the per-step lists wait_s (the
-    time blocked on the next batch) and step_s."""
-    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-        raise NotImplementedError("multi-process training (DDP) is ROADMAP A14")
+    time blocked on the next batch) and step_s, and in a multi-process run
+    allreduce_s (the gradient sum)."""
     device = torch.device(device)
     state = TrainState(ae_net.to(device), ist_net.to(device), optim_cfg)
     if warm_start is not None:
         warm_start(state)
+    primary = multihost.is_primary()
+    if multihost.process_count() > 1:  # every process starts from process 0's weights
+        for net in state.nets.values():
+            for t in list(net.parameters()) + list(net.buffers()):
+                dist.broadcast(t.data, src=0)
     start_step = 0
     if resume and fit_cfg.ckpt_dir:
         last = ckpt_lib.latest_checkpoint(fit_cfg.ckpt_dir)
@@ -100,10 +111,10 @@ def fit(
             start_step = state.step
             logger.info(f"Resumed from {last} (step {start_step})")
 
-    mlog = MetricsLogger(fit_cfg.log_dir, tensorboard) if fit_cfg.log_dir else None
+    mlog = MetricsLogger(fit_cfg.log_dir, tensorboard) if fit_cfg.log_dir and primary else None
 
     def run_validation(step: int) -> None:
-        if val_loader is None:
+        if val_loader is None or not primary:
             return
         for net in state.nets.values():
             net.eval()
@@ -137,7 +148,7 @@ def fit(
             if rec is None:
                 break
             waited = time.perf_counter() - t_wait
-            metrics = train_step(state, prepare_train_batch(rec, device))
+            metrics = train_step(state, prepare_train_batch(rec, device), timing)
             step = state.step
             if timing is not None:
                 _sync(device)
@@ -146,7 +157,8 @@ def fit(
             if step % fit_cfg.log_every == 0 or step == 1:
                 m = {k: float(v) for k, v in metrics.items()}
                 rate = (step - start_step) / (time.perf_counter() - t0)
-                logger.info(f"step {step}: {m} ({rate:.2f} it/s)")
+                if primary:
+                    logger.info(f"step {step}: {m} ({rate:.2f} it/s)")
                 if mlog:
                     mlog.log_scalars(step, m)
                 if metrics_hook:
@@ -155,15 +167,17 @@ def fit(
                 run_validation(step)
                 validated = step
             if fit_cfg.ckpt_dir and step % fit_cfg.checkpoint_every == 0:
-                ckpt_lib.save_checkpoint(fit_cfg.ckpt_dir, state, step)
+                if primary:
+                    ckpt_lib.save_checkpoint(fit_cfg.ckpt_dir, state, step)
                 saved = step
     finally:
         cycle.close()
     # the last step's checkpoint and validation, unless the loop just made them
-    if fit_cfg.ckpt_dir and saved != state.step:
+    if fit_cfg.ckpt_dir and saved != state.step and primary:
         ckpt_lib.save_checkpoint(fit_cfg.ckpt_dir, state, state.step)
     if validated != state.step:
         run_validation(state.step)
     if mlog:
         mlog.close()
+    multihost.barrier()  # process 0's files are written when any process returns
     return state

@@ -14,6 +14,12 @@
   the interleaved 2B batch, BatchNorm on the pair's joint statistics.
 - nce_dtype="bf16" keeps InfoNCE's (N, N) logit matrix in bf16
   (models/losses.info_nce_loss).
+- In a multi-process run (parallel/multihost.py) each process steps on its
+  own rows as one global batch, the JAX package's step on its dp-sharded
+  batch: losses and metrics are each process's share of the global batch's
+  (global counts, InfoNCE over every process's columns, BatchNorm on the
+  global statistics), the gradients are summed over the processes, and
+  every process applies the same update (`train_step`).
 
 The arithmetic follows optax in f32: mu = (1 - b1) g + b1 mu, nu = (1 - b2) g^2
 + b2 nu, u = (mu / (1 - b1^t)) / (sqrt(nu / (1 - b2^t)) + eps) + wd p, p += -lr u.
@@ -22,14 +28,18 @@ The arithmetic follows optax in f32: mu = (1 - b1) g + b1 mu, nu = (1 - b2) g^2
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from gigapose_tpu_torch.models import losses as L
+from gigapose_tpu_torch.models.flax_bn import statistics_across_ranks
 from gigapose_tpu_torch.ops.gather import gather_patches
+from gigapose_tpu_torch.parallel import multihost
 
 NETS = ("ae", "ist")
 
@@ -184,10 +194,14 @@ class TrainState:
 
 
 def compute_losses(ae_net: nn.Module, ist_net: nn.Module, batch: TrainBatch, step: int,
-                   cfg: OptimConfig):
+                   cfg: OptimConfig, across_ranks: bool = False):
     """-> (total loss, metrics): the IST regression losses and the AE's
-    InfoNCE, for the nets that cfg.nets_to_train names."""
+    InfoNCE, for the nets that cfg.nets_to_train names. across_ranks: this
+    process's share of the global batch's (models/losses.py; BatchNorm's
+    statistics are global only inside flax_bn.statistics_across_ranks)."""
     B, P = batch.src_pts.shape[:2]
+    ar = across_ranks
+    global_count = lambda vf: (multihost.all_reduce_sum(vf.sum()) if ar else vf.sum()).clamp(min=1)
     metrics: Dict[str, torch.Tensor] = {}
     total = torch.zeros((), device=batch.src_img.device)
     valid = (batch.src_pts[..., 0] >= 0) & (batch.tar_pts[..., 0] >= 0)  # (B, P)
@@ -207,14 +221,15 @@ def compute_losses(ae_net: nn.Module, ist_net: nn.Module, batch: TrainBatch, ste
         gt_cs = torch.stack([torch.cos(batch.rel_inplane), torch.sin(batch.rel_inplane)], -1)
         gt_cs = gt_cs[:, None].expand(B, P, 2).reshape(-1, 2)
         if step < cfg.warm_up_steps:
-            loss_s, loss_i = L.l2_warmup_losses(pred_scale, pred_cossin, gt_scale, gt_cs, v)
+            loss_s, loss_i = L.l2_warmup_losses(pred_scale, pred_cossin, gt_scale, gt_cs, v,
+                                                across_ranks=ar)
         else:
-            loss_s = L.scale_loss(pred_scale, gt_scale, v, log=True)
-            loss_i = L.inplane_loss(pred_cossin, gt_cs, v, loss="geodesic")
+            loss_s = L.scale_loss(pred_scale, gt_scale, v, log=True, across_ranks=ar)
+            loss_i = L.inplane_loss(pred_cossin, gt_cs, v, loss="geodesic", across_ranks=ar)
         total = total + loss_s + loss_i
         vf = v.to(pred_scale.dtype)
         metrics["scale"], metrics["inp"] = loss_s, loss_i
-        metrics["scale_err"] = ((pred_scale - gt_scale).abs() * vf).sum() / vf.sum().clamp(min=1)
+        metrics["scale_err"] = ((pred_scale - gt_scale).abs() * vf).sum() / global_count(vf)
 
     if cfg.trains("ae"):
         stacked = torch.stack([batch.src_img, batch.tar_img], dim=1)
@@ -229,26 +244,72 @@ def compute_losses(ae_net: nn.Module, ist_net: nn.Module, batch: TrainBatch, ste
             tau = cfg.tau_start + (cfg.tau - cfg.tau_start) * frac
         C = src_g.shape[-1]
         nce = L.info_nce_loss(src_g.reshape(-1, C), tar_g.reshape(-1, C), v, tau=tau,
-                              compute_dtype=torch.bfloat16 if cfg.nce_dtype == "bf16" else None)
+                              compute_dtype=torch.bfloat16 if cfg.nce_dtype == "bf16" else None,
+                              across_ranks=ar)
         total = total + nce
         vf = v.to(nce.dtype)
         pos = (src_g * tar_g).sum(-1).reshape(-1)
         metrics["infoNCE"] = nce
-        metrics["pos_sim"] = (pos * vf).sum() / vf.sum().clamp(min=1)
+        metrics["pos_sim"] = (pos * vf).sum() / global_count(vf)
 
     metrics["total"] = total
     return total, metrics
 
 
-def train_step(state: TrainState, batch: TrainBatch) -> Dict[str, torch.Tensor]:
+def sum_gradients(state: TrainState) -> None:
+    """Sum the trained nets' gradients over the processes, in one all_reduce
+    of a flat buffer (a missing gradient counts as zero)."""
+    params = [p for net in state.opt_state for p in state.nets[net].parameters()]
+    flat = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
+                      for p in params])
+    dist.all_reduce(flat)
+    o = 0
+    for p in params:
+        p.grad = flat[o:o + p.numel()].view_as(p)
+        o += p.numel()
+
+
+def train_step(state: TrainState, batch: TrainBatch,
+               timing: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
     """One optimizer step on `batch`, in place on `state`; returns the
-    step's metrics (detached tensors on the trainer's device)."""
+    step's metrics (detached tensors on the trainer's device).
+
+    In a multi-process run `batch` is this process's rows of the global
+    batch. Each process's loss L_r is its share of the global loss
+    L = sum_r L_r (global counts; InfoNCE's columns and BatchNorm's
+    statistics come from every process through autograd-aware collectives,
+    whose backward hands each process the gradient that the other
+    processes' losses send to its activations). So after the backward,
+    process r holds the gradient of L along every path through its own
+    forward, and grad L = the SUM of the processes' gradients: not DDP's
+    mean, which would divide the global loss's gradient by the process
+    count. The same summed gradient and the same Adam arithmetic give the
+    same update on every process. The metrics returned are the global
+    batch's (the shares summed). `timing`, when given, gets the seconds of
+    the gradient sum (after a device synchronize) in "allreduce_s"."""
+    across = multihost.process_count() > 1
     for net in state.nets.values():
         net.train()
         for p in net.parameters():
             p.grad = None
-    total, metrics = compute_losses(state.ae_net, state.ist_net, batch, state.step, state.cfg)
+    with statistics_across_ranks(across):
+        total, metrics = compute_losses(state.ae_net, state.ist_net, batch, state.step,
+                                        state.cfg, across_ranks=across)
     total.backward()
+    if across:
+        dev = total.device
+        if timing is not None and dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        sum_gradients(state)
+        if timing is not None:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            timing.setdefault("allreduce_s", []).append(time.perf_counter() - t0)
+        names = sorted(metrics)
+        summed = torch.stack([metrics[k].detach() for k in names])
+        dist.all_reduce(summed)
+        metrics = dict(zip(names, summed))
     state.tx.update(state.opt_state, state.nets)
     state.step += 1
     return {k: v.detach() for k, v in metrics.items()}

@@ -178,14 +178,15 @@ def test_cli_refuses_what_it_does_not_serve(tmp_path, monkeypatch):
     """No card and no device= raises; so do the options that are not ported,
     the overrides of keys the CLI does not read and an unknown
     model.serving_quant_ist (test.py serves it as off). int8 serving with
-    the int8 IST runs."""
+    the int8 IST runs. store_shards=2 serves a view-sharded store with the
+    csvs of the whole store (time column aside), and a launch environment
+    with GIGAPOSE_COORDINATOR alone raises, naming what it lacks (two
+    processes: tests/test_torch_parallel.py)."""
     root = synthetic_bop.build(str(tmp_path))
     base = [f"machine.root_dir={root}", "test_dataset_name=tudl"]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device=cpu"):
             cli.main(base)
-    with pytest.raises(NotImplementedError, match="A14"):
-        cli.main(base + ["device=cpu", "store_shards=2"])
     with pytest.raises(NotImplementedError, match="vis_every"):
         cli.main(base + ["device=cpu", "vis_every=5"])
     for unread in ("model.ist_net.num_attn_heads=4", "model.optim.ae_lr=1.0e-4",
@@ -202,8 +203,17 @@ def test_cli_refuses_what_it_does_not_serve(tmp_path, monkeypatch):
     assert type(runner.estimator.ist_net).__name__ == "ISTNetInt8"
     assert not runner.estimator.ist_net.static_scales and runner.timing["images"] == 1
     assert torch.isfinite(runner.store.ist_features.float()).all()
+    csvs = {}
+    for shards in (1, 2):
+        runner = cli.main(base + ["device=cpu", f"store_shards={shards}", f"run_id=s{shards}",
+                                  "data.template.num_templates=8", "model.testing_metric.k=4"])
+        assert type(runner.store).__name__ == ("ShardedStore" if shards > 1 else "TemplateStore")
+        pred = osp.join(root, "results", f"large_s{shards}", "predictions")
+        csvs[shards] = [[line.split(",")[:6] for line in open(osp.join(pred, f))]
+                        for f in sorted(os.listdir(pred)) if f.endswith(".csv")]
+    assert len(csvs[2]) == 2 and csvs[2] == csvs[1]
     monkeypatch.setenv("GIGAPOSE_COORDINATOR", "localhost:1234")
-    with pytest.raises(NotImplementedError, match="A14"):
+    with pytest.raises(ValueError, match="GIGAPOSE_NUM_PROCESSES, GIGAPOSE_PROCESS_ID"):
         cli.main(base + ["device=cpu"])
 
 

@@ -67,7 +67,10 @@ def test_port_imports_no_jax_pil_yaml_or_jax_package():
                      "gigapose_tpu_torch.utils.weight", "gigapose_tpu_torch.refiner.megapose_net",
                      "gigapose_tpu_torch.refiner.megapose_refiner",
                      "gigapose_tpu_torch.refiner.multiview", "gigapose_tpu_torch.refiner.so3_grid",
-                     "gigapose_tpu_torch.refiner.depth_refiner"):
+                     "gigapose_tpu_torch.refiner.depth_refiner",
+                     "gigapose_tpu_torch.parallel.multihost", "gigapose_tpu_torch.parallel.mesh",
+                     "gigapose_tpu_torch.parallel.sharded_store",
+                     "gigapose_tpu_torch.models.flax_bn"):
         assert expected in result["modules"]
 
 

@@ -205,7 +205,7 @@ def test_refine_cli_drops_weak_instances_and_refuses(tmp_path, monkeypatch):
     models = osp.join(root, "datasets", "tudl", "models")
     with pytest.raises(ValueError, match=f"obj_id 3 .*{models}"):
         refine.main(base + ["device=cpu", f"init_loc_path={missing}", "min_score=0"])
-    monkeypatch.setenv("GIGAPOSE_COORDINATOR", "localhost:1234")
-    with pytest.raises(NotImplementedError, match="A14"):
+    monkeypatch.setenv("GIGAPOSE_COORDINATOR", "localhost:1234")  # without its companions
+    with pytest.raises(ValueError, match="GIGAPOSE_NUM_PROCESSES, GIGAPOSE_PROCESS_ID"):
         refine.main(base + ["device=cpu"])
     assert not os.environ.get("GIGAPOSE_DISTRIBUTED")

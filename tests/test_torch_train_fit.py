@@ -144,8 +144,8 @@ def test_train_cli_smoke(root, monkeypatch):
     for bad, err in (("max_step=3", ValueError), ("model.optim.nce_dtype=bf16", ValueError)):
         with pytest.raises(err):
             train_cli.main(_train_args(root, "bad", 1, [bad]))
-    monkeypatch.setenv("GIGAPOSE_COORDINATOR", "localhost:1234")
-    with pytest.raises(NotImplementedError, match="A14"):
+    monkeypatch.setenv("GIGAPOSE_COORDINATOR", "localhost:1234")  # without its companions
+    with pytest.raises(ValueError, match="GIGAPOSE_NUM_PROCESSES, GIGAPOSE_PROCESS_ID"):
         train_cli.main(_train_args(root, "bad", 1))
 
 
