@@ -274,6 +274,16 @@ inputs, twice: with the bf16 AE (`serving_quant=off`) and with the int8 AE
    one checkpoint written (by process 0), the same weights on both
    ([dp_train], [dp_train_cli]). Two processes share one card here: these
    legs check correctness and overhead, not scaling.
+19. (after phase 15.4) the port's selfcheck_full on the card
+   (scripts/selfcheck_full.py, in a temp dir), cut to about 80 s: level 0,
+   seed 0, SELFCHECK_STEPS coarse and SELFCHECK_REFINER_STEPS refiner steps
+   (the JAX gates' budget is 900 + 400; PERF.md keeps the full-budget runs),
+   the int8 leg on vit_deep_test (head width 64, the attention kernel's):
+   its JSON line complete (the JAX script's keys) and finite, the int8
+   retrieval agreement at least 0.99, and with every count set to 0 just
+   before it the launches of its coarse path and int8 leg
+   (expected_counts: 4 matching forwards on a bf16 store, 3 calls of the
+   int8 AE: one onboarding chunk and two queries) ([selfcheck]);
 17. (right after phase 1) the image decoders on the host: each committed
    fixture of tests/data/codecs (four 480 x 640 JPEGs, a 1280 x 960 LZW
    TIFF, a 16-bit RGB and an Adam7 PNG) decoded by the reader's choice by
@@ -337,6 +347,7 @@ from gigapose_tpu_torch.lib3d.icosphere import template_object_poses
 from gigapose_tpu_torch.dataloader.templates_disk import list_objects, load_object_templates
 from gigapose_tpu_torch.models import vit_int8 as v8
 from gigapose_tpu_torch.models.ist_int8 import ISTNetInt8
+from gigapose_tpu_torch.models.vit import VIT_CONFIGS
 from gigapose_tpu_torch.ops import fused_matching as fm
 from gigapose_tpu_torch.ops import qconv as QC
 from gigapose_tpu_torch.ops import qmm as Q
@@ -370,6 +381,7 @@ from gigapose_tpu_torch.render.rasterizer import Rasterizer
 from gigapose_tpu_torch.scripts import convert_to_shards
 from gigapose_tpu_torch.scripts import eval_bop
 from gigapose_tpu_torch.scripts import render_templates as RT
+from gigapose_tpu_torch.scripts import selfcheck_full as SELFCHECK
 from gigapose_tpu_torch.scripts import train_refiner as TRAIN_REFINER
 from gigapose_tpu_torch.training.checkpoint import serving_weights
 from gigapose_tpu_torch.training.loop import FitConfig, fit
@@ -416,6 +428,7 @@ WIRING_LIMITS = dict(rel_max=3e-2, rel_mean=2.5e-2, cos_gap=3e-4)
 WIRING_MOVED_COS = 0.9
 TOKENS = 257  # ViT-L/14 at 224 x 224: CLS + 16 x 16 patches, not padded
 INT8_COS_MIN = 0.99
+INT8_AGREEMENT_MIN = 0.99  # tests/test_selfcheck_e2e.py's int8 retrieval gate
 KERNELS = ("fused_matching", "qmm", "rasterizer", "qconv")
 HOST_SOURCES = ("rasterizer.cpp", "codecs.cpp")  # built with the host compiler
 # phase 10: test images, detections per test image (image i has
@@ -3829,6 +3842,77 @@ def raster_record(rec: dict) -> dict:
     return entry
 
 
+# 19. selfcheck_full cut to about 80 s (its full budget is the JAX gates'
+# 900 + 400 steps); the JAX script's JSON keys (gigapose_tpu/scripts/
+# selfcheck_full.py:229-246, int8_metrics :174-181)
+SELFCHECK_STEPS, SELFCHECK_REFINER_STEPS = 100, 40
+SELFCHECK_AE = "vit_deep_test"
+SELFCHECK_KEYS = (
+    "coarse_ar", "refined_ar", "int8_retrieval_agreement", "int8_t_err_mm", "int8_rot_err_deg",
+    "int8_ar", "act_absmax_global", "act_absmax_blocks", "level", "seed", "curriculum",
+    "coarse_steps", "refiner_steps", "coarse_t_err_mm", "coarse_rot_err_deg",
+    "refined_t_err_mm", "refined_rot_err_deg", "gt_t", "coarse_t", "refined_t")
+
+
+def finite_json(value) -> bool:
+    if isinstance(value, dict):
+        return all(finite_json(v) for v in value.values())
+    if isinstance(value, list):
+        return all(finite_json(v) for v in value)
+    return not isinstance(value, float) or bool(np.isfinite(value))
+
+
+def phase_selfcheck(dev, smi) -> dict:
+    """19. The port's selfcheck_full on the card at a cut budget: the JSON
+    line complete and finite, int8 agreement >= 0.99, every kernel's
+    launches in the run (each count set to 0 just before it) as
+    expected_counts gives them: the coarse runner's, the A/B's two and the
+    int8 runner's forwards on a bf16 store, the int8 AE's onboarding
+    chunk and two queries."""
+    tmp = tempfile.mkdtemp(prefix="gp_selfcheck_")
+    args = [f"root={tmp}", f"steps={SELFCHECK_STEPS}", f"refiner_steps={SELFCHECK_REFINER_STEPS}",
+            "level=0", "seed=0", "curriculum=false", f"ae_model={SELFCHECK_AE}",
+            f"device={dev}"]
+    try:
+        t0 = time.perf_counter()
+        reset_counts()
+        RZ.rasterize.launches = 0
+        out = SELFCHECK.main(args)
+        torch.cuda.synchronize()
+        launched = dict(counts(), rasterizer=RZ.rasterize.launches)
+        seconds = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    missing = [k for k in SELFCHECK_KEYS if k not in out]
+    check(not missing, f"selfcheck_full's JSON line lacks {missing}")
+    check(finite_json(out), f"selfcheck_full's JSON line is not finite: {out}")
+    check(out["device"] == str(dev), f"selfcheck_full ran on {out['device']}")
+    check(out["int8_retrieval_agreement"] >= INT8_AGREEMENT_MIN,
+          f"int8 retrieval agreement {out['int8_retrieval_agreement']} < {INT8_AGREEMENT_MIN}")
+    views = len(template_object_poses(0))
+    # the refiner renders on the host, as the JAX package's does: no rasterizer launch
+    want = dict(expected_counts(4, VIT_CONFIGS[SELFCHECK_AE].depth,
+                                int8_ae_calls=-(-views // 64) + 2), rasterizer=0)
+    check(launched == want, f"selfcheck launches {launched}, expected {want}")
+    log("selfcheck", cut=f"steps={SELFCHECK_STEPS},refiner_steps={SELFCHECK_REFINER_STEPS}"
+        f"(of_900+400),level=0,seed=0,ae_model={SELFCHECK_AE}", seconds=f"{seconds:.1f}",
+        legs=repr(out["seconds"]).replace(" ", ""),
+        **{k: out[k] for k in SELFCHECK_KEYS if k != "act_absmax_blocks"},
+        launches=repr({k: v for k, v in launched.items() if v}).replace(" ", ""),
+        nvidia_smi=repr(smi))
+    return dict(result=out, launches=launched, seconds=seconds)
+
+
+def add_selfcheck_launches(kernels: list, launched: dict) -> None:
+    """Phase 19's launches beside each kernel's."""
+    keys = {"fused_matching_bfloat16": "match_bf16", "fused_matching_float32": "match_f32",
+            "ist_qconv": "qconv", "ist_quantize": "quantize", "ist_act_absmax": "act_absmax"}
+    for k in kernels:
+        key = keys.get(k["name"], k["name"])
+        if key in launched:
+            k["launches_selfcheck"] = launched[key]
+
+
 def kernel_records(record, qrec, krec, main_stats, bf16_counts, int8_counts, forwards, cli_rec):
     """One entry per hand-written kernel (and per chain that ports a TPU
     kernel): launches in the main path's runs, error against the plain
@@ -4584,11 +4668,15 @@ def main() -> int:
 
     cli_rec = phase_cli(templates, dev, smi, then=after_cli)
 
+    # 19. the port's selfcheck_full on the card, at a cut budget
+    selfcheck = phase_selfcheck(dev, smi)
+
     kernels = kernel_records(record, qrec, krec, stats, bf16_counts, int8_counts, forwards,
                              cli_rec)
     add_leg_launches(kernels, sharded, cli_rec["then"]["multiprocess"])
     kernels.append(raster_record(cli_rec["then"]))
     kernels += ist_kernel_records(ist_rec, cli_rec["then"]["ist_cli"])
+    add_selfcheck_launches(kernels, selfcheck["launches"])
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -15,7 +15,9 @@ It runs on cuda:0 unless `device=` names another device (the tests pass
 `device=cpu`); with no card and no device it raises. `GIGAPOSE_TINY=1` in
 the environment builds tiny nets with seeded random weights instead of the
 configured ones (the full pipeline at a small size, as in test.py), or with
-the weights of model.checkpoint_path when it is given.
+the weights of model.checkpoint_path when it is given; `tiny_ae_model=`
+swaps the tiny AE (vit_tiny_test) for another of models/vit.py's configs,
+such as vit_deep_test, whose head width 64 the int8 attention kernel takes.
 
 Precision and kernels, as test.py decides them: `use_pallas_matching: auto`
 is the fused matching kernel (ops/fused_matching) on CUDA and
@@ -46,11 +48,13 @@ than its shards use raises NotImplementedError: the JAX package would shard
 the batch over them, the port runs one process per card
 (parallel/mesh.py).
 
+vis_every=N writes the correspondence and affine-warp plots of every N-th
+image to <save_dir>/vis (pipeline/runner.py:_dump_vis, utils/vis.py).
+
 Not served yet, and refused with the ROADMAP item to look up: an orbax
-checkpoint directory of the JAX trainer (A12), the retrieval plots of
-vis_every (A9: they draw with PIL). An override whose key the CLI does not
-read (one of test.py's training or loader options) raises ValueError: it
-would change nothing.
+checkpoint directory of the JAX trainer (A12). An override whose key the
+CLI does not read (one of test.py's training or loader options) raises
+ValueError: it would change nothing.
 """
 
 from __future__ import annotations
@@ -82,7 +86,7 @@ from gigapose_tpu_torch.utils.logging import disable_output
 
 # keys the CLI reads beside those of its config files
 OPTIONAL_KEYS = ("device", "onboarding_cache", "max_images", "vis_every",
-                 "model.serving_quant_ist")
+                 "model.serving_quant_ist", "tiny_ae_model")
 # model.serving_quant_ist -> quantize_serving(ist=...)
 IST_MODES = {"off": False, "int8": True, "int8-static": "static"}
 
@@ -128,7 +132,7 @@ def build_estimator(cfg: Config, tiny: bool = False) -> GigaPoseEstimator:
     if tiny:  # smoke / end-to-end testing: tiny nets, the full pipeline
         set_f32_matmul_precision()
         gen = torch.Generator().manual_seed(0)
-        ae = init_random_(AENet("vit_tiny_test"), gen)
+        ae = init_random_(AENet(str(cfg.get("tiny_ae_model") or "vit_tiny_test")), gen)
         ist = init_random_(ISTNet(
             ISTBackbone(initial_dim=16, block_dims=(16, 16, 24, 32), descriptor_size=32,
                         input_size=256),
@@ -242,11 +246,6 @@ def main(argv=None) -> CoarseRunner:
     whose `timing` holds onboarding and run times (this process's)."""
     multihost.maybe_initialize()  # before any CUDA call
     cfg = load_cli_config(argv, OPTIONAL_KEYS)
-    if cfg.get("vis_every"):
-        raise NotImplementedError(
-            "vis_every: the retrieval plots draw with PIL, which the port does not use "
-            "(ROADMAP A9)")
-
     ds = cfg.test_dataset_name
     if not ds:
         raise ValueError("test_dataset_name=... is required")
@@ -260,7 +259,11 @@ def main(argv=None) -> CoarseRunner:
     if cfg.get("disable_output"):
         disable_output(osp.join(save_dir, "console.log"))
 
-    est = build_estimator(cfg, tiny=bool(int(os.environ.get("GIGAPOSE_TINY", "0"))))
+    tiny = bool(int(os.environ.get("GIGAPOSE_TINY", "0")))
+    if cfg.get("tiny_ae_model") and not tiny:
+        raise ValueError("tiny_ae_model= picks the AE of GIGAPOSE_TINY=1's tiny nets; "
+                         "set GIGAPOSE_TINY=1 or drop it")
+    est = build_estimator(cfg, tiny=tiny)
     template_dir = cfg.data.template.dir if cfg.get("data") and cfg.data.template.dir else osp.join(
         root, "templates", ds
     )
@@ -289,6 +292,7 @@ def main(argv=None) -> CoarseRunner:
         cache_tag=_cache_tag(cfg, est),
         store_shards=shards,
         shard_devices=shard_devices(est.device, shards),
+        vis_every=int(cfg.get("vis_every") or 0),
     )
     dataset = InferenceDataset(
         root_dir=root, dataset_name=ds, test_setting=cfg.test_setting,

@@ -241,6 +241,13 @@ def encode_png(array: np.ndarray,
     return assemble_png(a.shape[1], H, depth, color, rows.tobytes())
 
 
+def save_png(path: str, array: np.ndarray,
+             filter_type: Union[int, Sequence[int], str] = 0) -> None:
+    """encode_png(array, filter_type) written to `path`."""
+    with open(path, "wb") as f:
+        f.write(encode_png(array, filter_type))
+
+
 def to_rgba(img: np.ndarray) -> np.ndarray:
     """8-bit gray, gray + alpha, RGB or RGBA (H, W[, C]) -> (H, W, 4) uint8,
     as PIL's convert("RGBA") gives it."""

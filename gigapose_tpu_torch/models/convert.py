@@ -9,7 +9,9 @@ torch -> flax -> torch is the identity (tests/test_torch_models.py).
 
 Inputs are nested dicts of array-likes (numpy, or anything np.asarray takes);
 nothing here imports jax. `gigapose_ckpt_to_torch` reads the reference's
-lightning checkpoints directly.
+lightning checkpoints directly; `dinov2_hub_to_torch` and
+`dinov2_hf_to_torch` map DINOv2 backbones of torch hub and of HuggingFace
+transformers onto the port's AENet.
 """
 
 from __future__ import annotations
@@ -224,6 +226,69 @@ CKPT_PREFIXES = (
 # keys of the reference layout that inference does not use: DINOv2's iBOT
 # mask token (training only)
 CKPT_UNUSED = ("ae_net.dinov2_model.mask_token",)
+
+
+def _tensor(x) -> torch.Tensor:
+    if torch.is_tensor(x):
+        return x.detach().to("cpu", torch.float32).clone()
+    return _t(x)
+
+
+def _hub_block_keys(sd: Mapping, b: str):
+    """The hub block's leaves the port's ViT block holds (fc1 / fc2, or
+    SwiGLU's w12 / w3)."""
+    mlp = ("fc1", "fc2") if b + "mlp.fc1.weight" in sd else ("w12", "w3")
+    names = ["norm1.weight", "norm1.bias", "attn.qkv.weight", "attn.qkv.bias",
+             "attn.proj.weight", "attn.proj.bias", "ls1.gamma", "norm2.weight", "norm2.bias",
+             "ls2.gamma"]
+    names += [f"mlp.{m}.{w}" for m in mlp for w in ("weight", "bias")]
+    return names
+
+
+def dinov2_hub_to_torch(sd: Mapping, depth: int) -> Dict[str, torch.Tensor]:
+    """A facebookresearch/dinov2 hub state dict (blocks.N.attn.qkv.*) ->
+    the port's AENet state dict (the counterpart of the JAX package's
+    dinov2_hub_to_flax). The port's ViT has the hub's module names, so this
+    takes the same leaves under "vit." (what it does not hold, such as
+    mask_token, stays out)."""
+    out = {f"vit.{k}": _tensor(sd[k]) for k in
+           ("cls_token", "pos_embed", "patch_embed.proj.weight", "patch_embed.proj.bias",
+            "norm.weight", "norm.bias")}
+    if "register_tokens" in sd:
+        out["vit.register_tokens"] = _tensor(sd["register_tokens"])
+    for i in range(depth):
+        b = f"blocks.{i}."
+        for name in _hub_block_keys(sd, b):
+            out[f"vit.{b}{name}"] = _tensor(sd[b + name])
+    return out
+
+
+def dinov2_hf_to_torch(sd: Mapping, depth: int) -> Dict[str, torch.Tensor]:
+    """A HuggingFace transformers Dinov2Model state dict (separate query /
+    key / value) -> the port's AENet state dict (the counterpart of the JAX
+    package's dinov2_hf_to_flax): q, k and v stacked into qkv along the
+    output dimension."""
+    g = lambda k: _tensor(sd[k])
+    out = {
+        "vit.cls_token": g("embeddings.cls_token"),
+        "vit.pos_embed": g("embeddings.position_embeddings"),
+        "vit.patch_embed.proj.weight": g("embeddings.patch_embeddings.projection.weight"),
+        "vit.patch_embed.proj.bias": g("embeddings.patch_embeddings.projection.bias"),
+        "vit.norm.weight": g("layernorm.weight"),
+        "vit.norm.bias": g("layernorm.bias"),
+    }
+    for i in range(depth):
+        b, o = f"encoder.layer.{i}.", f"vit.blocks.{i}."
+        a = b + "attention.attention."
+        for w in ("weight", "bias"):
+            out[o + f"attn.qkv.{w}"] = torch.cat([g(a + f"{n}.{w}")
+                                                  for n in ("query", "key", "value")])
+            out[o + f"attn.proj.{w}"] = g(b + f"attention.output.dense.{w}")
+            for n in ("norm1", "norm2", "mlp.fc1", "mlp.fc2"):
+                out[o + f"{n}.{w}"] = g(b + f"{n}.{w}")
+        out[o + "ls1.gamma"] = g(b + "layer_scale1.lambda1")
+        out[o + "ls2.gamma"] = g(b + "layer_scale2.lambda1")
+    return out
 
 
 def gigapose_ckpt_to_torch(path: str):

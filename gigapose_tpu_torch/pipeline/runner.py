@@ -150,6 +150,9 @@ class CoarseRunner:
     # estimator's device store_shards times when not given)
     store_shards: int = 1
     shard_devices: Optional[Sequence] = None
+    # > 0: write the correspondence and affine-warp plots of every
+    # vis_every-th image to <save_dir>/vis (`_dump_vis`)
+    vis_every: int = 0
 
     def __post_init__(self):
         if self.store_shards > 1 and not isinstance(self.store, ShardedStore):
@@ -395,7 +398,8 @@ class CoarseRunner:
             outs = {"poses": [], "scores": [], "view_ids": []}
             for s in range(0, N, chunk):
                 sel = np.arange(s, min(s + chunk, N))
-                pred = self._forward(self.prepare_batch(image, sel))
+                batch = self.prepare_batch(image, sel)
+                pred = self._forward(batch)
                 for name, out in outs.items():
                     t = getattr(pred, name)[: len(sel)]  # scores are bf16 on a bf16 store
                     out.append((t.float() if t.is_floating_point() else t).cpu().numpy())
@@ -413,6 +417,8 @@ class CoarseRunner:
                 det_times = np.full(N, image.detection_time)
             if len(sel) == 0:
                 continue
+            if self.vis_every and idx_batch % self.vis_every == 0:
+                self._dump_vis(image, batch, pred, s, idx_batch)
             np.savez(
                 osp.join(pred_dir, f"{idx_batch:06d}.npz"),
                 scene_id=np.full(len(sel), image.scene_id, np.int32),
@@ -433,3 +439,30 @@ class CoarseRunner:
         return bop_io.merge_batched_predictions(
             pred_dir, self.dataset_name, model_name, run_id, is_refined=False
         )
+
+    def _dump_vis(self, image: ImageDetections, batch: DetectionBatch, pred, first: int,
+                  idx_batch: int) -> None:
+        """The correspondence and affine-warp plots of the image's last
+        forward's first detection (the image's detection `first`) against its
+        top retrieved template (the reference's retrieval plots,
+        gigaPose.py:451-479, 615-633), as <save_dir>/vis/match_<image>.png and
+        warp_<image>.png. Without a template directory the query crop stands
+        in for the template."""
+        from gigapose_tpu_torch.dataloader.png import save_png
+        from gigapose_tpu_torch.utils import vis
+
+        vis_dir = osp.join(self.save_dir, "vis")
+        os.makedirs(vis_dir, exist_ok=True)
+        tar = batch.crops[0]
+        src = tar
+        if self.template_dir is not None:
+            data = load_object_templates(self.template_dir, int(image.obj_ids[first]))
+            view = int(pred.view_ids[0, 0])
+            src = prepare_template_crops(data["rgba"][view][None], self.estimator.device,
+                                         self.target_size, self.num_patches)[0]
+        host = lambda t: t.float().cpu().numpy()
+        save_png(osp.join(vis_dir, f"match_{idx_batch:06d}.png"),
+                     vis.plot_keypoints(src, tar, host(pred.src_pts[0, 0]),
+                                        host(pred.tar_pts[0, 0])))
+        save_png(osp.join(vis_dir, f"warp_{idx_batch:06d}.png"),
+                     vis.plot_affine_warp(src, tar, host(pred.M[0, 0]).astype(np.float64)))

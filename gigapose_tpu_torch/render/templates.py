@@ -31,7 +31,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from gigapose_tpu_torch.dataloader.png import encode_png
+from gigapose_tpu_torch.dataloader.png import save_png
 from gigapose_tpu_torch.lib3d.icosphere import template_object_poses
 from gigapose_tpu_torch.pipeline.templates import TEMPLATE_K
 from gigapose_tpu_torch.render.mesh_io import diameter, load_mesh
@@ -65,8 +65,7 @@ def depth_mm_u16(depth: np.ndarray, unit_to_mm: float) -> np.ndarray:
 
 def write_view(out_dir: str, view: int, rgba: np.ndarray, depth_mm: np.ndarray) -> None:
     for name, image in ((f"{view:06d}.png", rgba), (f"{view:06d}_depth.png", depth_mm)):
-        with open(osp.join(out_dir, name), "wb") as f:
-            f.write(encode_png(image, PNG_FILTER))
+        save_png(osp.join(out_dir, name), image, PNG_FILTER)
 
 
 def add_timing(timing: Optional[dict], key: str, value: float) -> None:

@@ -175,8 +175,8 @@ def test_tiny_build_has_the_jax_tiny_shapes(monkeypatch):
 
 
 def test_cli_refuses_what_it_does_not_serve(tmp_path, monkeypatch):
-    """No card and no device= raises; so do the options that are not ported,
-    the overrides of keys the CLI does not read and an unknown
+    """No card and no device= raises; so do tiny_ae_model= without
+    GIGAPOSE_TINY, the overrides of keys the CLI does not read and an unknown
     model.serving_quant_ist (test.py serves it as off). int8 serving with
     the int8 IST runs. store_shards=2 serves a view-sharded store with the
     csvs of the whole store (time column aside), and a launch environment
@@ -187,8 +187,8 @@ def test_cli_refuses_what_it_does_not_serve(tmp_path, monkeypatch):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device=cpu"):
             cli.main(base)
-    with pytest.raises(NotImplementedError, match="vis_every"):
-        cli.main(base + ["device=cpu", "vis_every=5"])
+    with pytest.raises(ValueError, match="GIGAPOSE_TINY"):  # the tiny nets' AE alone
+        cli.main(base + ["device=cpu", "tiny_ae_model=vit_deep_test"])
     for unread in ("model.ist_net.num_attn_heads=4", "model.optim.ae_lr=1.0e-4",
                    "machine.batch_size=8", "machine.num_workers=2",
                    "data.template.level_templates=2"):

@@ -12,6 +12,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "flax", "PIL", "yaml", "gigapose_tpu")
 
@@ -70,7 +72,13 @@ def test_port_imports_no_jax_pil_yaml_or_jax_package():
                      "gigapose_tpu_torch.refiner.depth_refiner",
                      "gigapose_tpu_torch.parallel.multihost", "gigapose_tpu_torch.parallel.mesh",
                      "gigapose_tpu_torch.parallel.sharded_store",
-                     "gigapose_tpu_torch.models.flax_bn"):
+                     "gigapose_tpu_torch.models.flax_bn",
+                     "gigapose_tpu_torch.scripts.synthetic_bop",
+                     "gigapose_tpu_torch.scripts.selfcheck_e2e",
+                     "gigapose_tpu_torch.scripts.selfcheck_full",
+                     "gigapose_tpu_torch.scripts.parity", "gigapose_tpu_torch.utils.vis",
+                     "gigapose_tpu_torch.utils.dashboard", "gigapose_tpu_torch.lib3d.sampling",
+                     "gigapose_tpu_torch.detector"):
         assert expected in result["modules"]
 
 
@@ -79,7 +87,8 @@ import json, os, sys
 jax_dir = os.path.join(%r, "gigapose_tpu") + os.sep
 opened = []
 sys.addaudithook(lambda event, args: opened.append(str(args[0])) if event == "open" else None)
-from gigapose_tpu_torch import %s as entry
+import importlib
+entry = importlib.import_module("gigapose_tpu_torch." + %r)
 entry.main(sys.argv[1:])
 forbidden = %r
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in forbidden)
@@ -152,6 +161,28 @@ def test_port_so3grid_refine_run_reads_nothing_of_the_jax_package(tmp_path):
                       "port_configs": ["bop.yaml", "large.yaml", "local.yaml", "test.yaml"]}
     grid = REPO / "gigapose_tpu_torch" / "assets" / "so3_grid_72.qua"
     assert grid.read_bytes() == (REPO / "gigapose_tpu" / "assets" / "so3_grid_72.qua").read_bytes()
+
+
+@pytest.mark.parametrize("entry,args", [
+    ("scripts.selfcheck_full", ["steps=2", "refiner_steps=1", "n_train=3"]),
+    ("scripts.parity", ["mode=dryrun"]),
+])
+def test_port_acceptance_chain_reads_nothing_of_the_jax_package(tmp_path, entry, args):
+    """selfcheck_full (every leg, the int8 A/B included) and the parity
+    dryrun (both coarse CLI legs, both refine legs, scoring) at tiny budgets
+    on the CPU build their fixtures with the port's own writer, open no file
+    under gigapose_tpu/ and load no forbidden module."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(OMP_NUM_THREADS="1")
+    root_key = "root_dir" if entry.endswith("parity") else "root"
+    out = subprocess.run(
+        [sys.executable, "-c", CLI_SCRIPT % (str(REPO), entry, FORBIDDEN),
+         f"{root_key}={tmp_path}", "device=cpu", *args],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    assert result["leaked"] == [] and result["jax_files"] == [], result
 
 
 def test_port_sources_never_import_jax():
