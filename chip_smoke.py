@@ -111,9 +111,10 @@ inputs, twice: with the bf16 AE (`serving_quant=off`) and with the int8 AE
    renderers, beside the batch with it: the referee's own cost ([referee]);
    then the refine CLI
    (`gigapose_tpu_torch.refine.main`) on the MultiHypothesis csv of phase
-   10's last run, 20 images, min_score 0, with each renderer: one row per
-   instance, each equal to one of its coarse hypotheses (the CLI's
-   untrained head is the identity), rasterizer launches per batch, and a
+   10's last run, REFINE_CLI_IMAGES images, min_score 0, with each
+   renderer: one row per instance, each equal to one of its coarse
+   hypotheses (the CLI's untrained head is the identity), rasterizer
+   launches per batch, and a
    [refine_cli] line per run (per-image p50 / p90, images/s,
    hypotheses/s).
 12. templates from CAD models and BOP scoring, beside phase 10's dataset:
@@ -183,8 +184,8 @@ inputs, twice: with the bf16 AE (`serving_quant=off`) and with the int8 AE
    one detection's 72-grid ([megapose_classify]); the refine CLI from
    checkpoint.pth.tar files of these nets (the coarse one with the older
    key names) with refiner_type=megapose on phase 10's MultiHypothesis
-   csv (20 images; its first image's rows against run_refinement with the
-   refiner itself) and with coarse_mode=so3grid on 2 images
+   csv (MEGAPOSE_CLI_IMAGES images; its first image's rows against
+   run_refinement with the refiner itself) and with coarse_mode=so3grid on 2 images
    ([megapose_cli]); no hand-written kernel launched ([megapose], with the
    phase's seconds).
 16. refiner training on the card, in phase 11's dataset (its two
@@ -238,8 +239,8 @@ inputs, twice: with the bf16 AE (`serving_quant=off`) and with the int8 AE
    store, stages as phase 9 ([forward_b32]), and that IST on the card
    against the CPU on 4 crops, equal ([ist_card_vs_cpu]); 15.4 (after
    phase 14) the coarse CLI with model.serving_quant=int8
-   model.serving_quant_ist=int8-static on phase 10's first 40 images, cold
-   and from the cache: launches per run (calibration's dynamic forward at
+   model.serving_quant_ist=int8-static on phase 10's first IST_CLI_IMAGES
+   images, cold and from the cache: launches per run (calibration's dynamic forward at
    each onboarding), per-image p50 / p90, the cold run against the
    estimator called directly, the cached csv equal ([ist_cli]).
 18. multi-device runs (parallel/): 18a (after phase 9) phase 4's bf16
@@ -274,8 +275,24 @@ inputs, twice: with the bf16 AE (`serving_quant=off`) and with the int8 AE
    one checkpoint written (by process 0), the same weights on both
    ([dp_train], [dp_train_cli]). Two processes share one card here: these
    legs check correctness and overhead, not scaling.
+20. the last modules: 20a (after phase 11) the JAX trainers' orbax
+   checkpoints read without orbax (utils/orbax.py): the committed fixtures
+   of tests/data/orbax (GIGAPOSE_TINY's nets, written by the JAX package's
+   save functions) against the manifest of orbax's own restore (every
+   array's sha256), the zstd library taken; the train state served by
+   cli.main on phase 10's first ORBAX_CLI_IMAGES images (the nets equal
+   to the bridge's bit for bit, the matching kernel's launches), the
+   refiner by refine.py refiner_checkpoint= with the device renderer on
+   the first image (finite poses that moved, rasterizer launches)
+   ([orbax_read], [orbax_serve]); 20b (after 18a) ViT-L in bf16 split over
+   TP_MP gloo processes on cuda:0 (parallel/tp.py) at B = TP_B against the
+   one-process forward (every patch's cosine above BF16_COS), ms per
+   forward, the all-reduces' share, GSPMD's bf16 partials beside the
+   port's f32 sums ([tp]); 20c (after 18a) onboard_templates_sharded of
+   phase 4's objects on [cuda:0] * 2, bit-equal to phase 4's store, and a
+   forward on it: one matching launch, outputs equal ([sharded_onboarding]).
 19. (after phase 15.4) the port's selfcheck_full on the card
-   (scripts/selfcheck_full.py, in a temp dir), cut to about 80 s: level 0,
+   (scripts/selfcheck_full.py, in a temp dir), cut to about 50 s: level 0,
    seed 0, SELFCHECK_STEPS coarse and SELFCHECK_REFINER_STEPS refiner steps
    (the JAX gates' budget is 900 + 400; PERF.md keeps the full-budget runs),
    the int8 leg on vit_deep_test (head width 64, the attention kernel's):
@@ -359,6 +376,7 @@ from gigapose_tpu_torch.pipeline.runner import CALIB_MARGIN, CALIB_VIEWS, prepar
 from gigapose_tpu_torch.pipeline.templates import (
     TEMPLATE_K,
     onboard_templates,
+    onboard_templates_sharded,
     prepare_template_crops,
 )
 from gigapose_tpu_torch.refiner import device_render as DR
@@ -384,6 +402,8 @@ from gigapose_tpu_torch.scripts import render_templates as RT
 from gigapose_tpu_torch.scripts import selfcheck_full as SELFCHECK
 from gigapose_tpu_torch.scripts import train_refiner as TRAIN_REFINER
 from gigapose_tpu_torch.training.checkpoint import serving_weights
+from gigapose_tpu_torch.utils import orbax as ORBAX
+from gigapose_tpu_torch.utils import zstd as ZSTD
 from gigapose_tpu_torch.training.loop import FitConfig, fit
 from gigapose_tpu_torch.training.state import (
     Adam,
@@ -434,7 +454,7 @@ HOST_SOURCES = ("rasterizer.cpp", "codecs.cpp")  # built with the host compiler
 # phase 10: test images, detections per test image (image i has
 # CLI_DETECTIONS[i % 6]), and the CLI's chunk (test.yaml's
 # max_num_dets_per_forward)
-CLI_IMAGES = 60  # 60 rather than 200 keeps the script inside its time limit
+CLI_IMAGES = 40  # 40 rather than 200 keeps the script inside its time limit
 CLI_DETECTIONS = (3, 5, 7, 10, 4, 8)
 CLI_CHUNK = 4
 # the CLI's poses against the estimator called directly: the CPU slice
@@ -1482,7 +1502,7 @@ CPU_BOUND = dict(R=1e-4, t_mm=0.05, score=1e-4)
 DEVICE_BOUND = dict(R=5e-4, t_mm=0.2, score=3e-4)
 # the refine CLI with its untrained (identity) head returns the coarse poses
 CLI_REFINE_TOL = dict(R=1e-4, t_rtol=1e-4)
-REFINE_CLI_IMAGES = 20  # the images of phase 14.3
+REFINE_CLI_IMAGES = 10  # the images of phase 11.5 and 18d
 # 11.3's adversarial set: faces per kind (one mesh of 20,000 faces), seen
 # at B = 8, 160 x 160 through a camera of focal length 572 px at about 0.5 m
 # (about 1,100 px a metre), one view across the camera plane
@@ -1998,7 +2018,7 @@ def phase_refinement(root: str, init_csv: str, dev, smi) -> dict:
 # host renderer; 12.2 runs the port's eval_bop from CAD models to AR.
 TEMPLATE_LEVEL = 1
 TEMPLATE_CHECK_VIEWS = 4  # views per mesh held bit-equal to the plain version
-E2E_IMAGES = 20
+E2E_IMAGES = 10
 E2E_RUN = "e2e"
 
 
@@ -2365,7 +2385,7 @@ TRAIN_STEPS, TRAIN_EVERY = 12, 6  # max_steps; checkpoint_every and val_every
 TRAIN_RUN = "train"
 TRAIN_JPG_STEPS = 5  # 13.6: max_steps from the JPEG shards
 PARITY_B, PARITY_STEPS, PARITY_WARM = 2, 3, 2
-SERVE_IMAGES = 40  # phase 10's first images, served from the trained checkpoint
+SERVE_IMAGES = 20  # phase 10's first images, served from the trained checkpoint
 # 13.3, the card against the host after PARITY_STEPS steps from one init
 # with warm-up 2 (lr 0, half, full): losses within PARITY_LOSS_RTOL; every
 # parameter within 2 x its net's summed lr and all but PARITY_FAR_SHARE of
@@ -2852,7 +2872,7 @@ def phase_training(cli_root: str, dev, smi) -> dict:
 # key layout (the coarse one with the older names) for the CLI runs
 MEGAPOSE_CPU_B = 2  # hypotheses of the card-against-CPU check
 MEGAPOSE_CLASSIFY_DETS = 4  # detections through classify_coarse on the 576-grid
-MEGAPOSE_CLI_IMAGES = 20  # refine CLI, refiner_type=megapose, on phase 10's csv
+MEGAPOSE_CLI_IMAGES = 10  # refine CLI, refiner_type=megapose, on phase 10's csv
 MEGAPOSE_SO3_IMAGES = 2  # refine CLI, coarse_mode=so3grid
 # the card against the CPU (refine_batch and classify_coarse): the cuDNN
 # and CPU convolutions sum in other orders (the H100 read R 2.8e-6, t 1.1e-3
@@ -3475,7 +3495,7 @@ IST_FUSED_PER_FORWARD = sum(c[-1] for c in IST_CONVS if "_conv1" in c[0])  # 8
 # (tests/test_ist_int8.py): dynamic scales, static scales on held-out inputs
 IST_COS_MIN = {"dynamic": 0.995, "static": 0.99}
 IST_CPU_CROPS = 4  # 15.3: crops of the request held card against CPU
-IST_CLI_IMAGES = 40  # 15.4: phase 10's first images
+IST_CLI_IMAGES = 20  # 15.4: phase 10's first images
 
 
 def f32_ist(ist_net):
@@ -3842,10 +3862,10 @@ def raster_record(rec: dict) -> dict:
     return entry
 
 
-# 19. selfcheck_full cut to about 80 s (its full budget is the JAX gates'
+# 19. selfcheck_full cut to about 50 s (its full budget is the JAX gates'
 # 900 + 400 steps); the JAX script's JSON keys (gigapose_tpu/scripts/
 # selfcheck_full.py:229-246, int8_metrics :174-181)
-SELFCHECK_STEPS, SELFCHECK_REFINER_STEPS = 100, 40
+SELFCHECK_STEPS, SELFCHECK_REFINER_STEPS = 50, 20
 SELFCHECK_AE = "vit_deep_test"
 SELFCHECK_KEYS = (
     "coarse_ar", "refined_ar", "int8_retrieval_agreement", "int8_t_err_mm", "int8_rot_err_deg",
@@ -4557,6 +4577,306 @@ def phase_codecs(smi) -> dict:
     return rec
 
 
+# 20. the last modules of the port: the JAX trainers' orbax checkpoints read
+# without orbax (20a), tensor parallelism of the ViT (20b) and object-parallel
+# onboarding (20c). The fixtures (tests/torch_orbax_fixtures.py wrote them and
+# their manifest with the JAX package's save functions; GIGAPOSE_TINY's nets)
+ORBAX_DIR = osp.join(osp.dirname(osp.abspath(__file__)), "tests", "data", "orbax")
+ORBAX_TRAIN = "train/step_00000000"
+ORBAX_REFINER = "train_refiner/refiner"
+ORBAX_CLI_IMAGES = 6  # 20a: phase 10's first images through cli.main
+TP_B, TP_MP, TP_REPS = 32, 2, 3  # 20b: ViT-L's batch, the mp split, timed forwards
+TP_LAYERSCALE = 0.3  # as phase 7: LayerScale's 1e-5 init would hide the blocks
+# tests/test_torch_models.py's bf16 agreement: every patch's cosine above it
+BF16_COS = 0.999
+ONBOARD_SHARDS = 2  # 20c: phase 4's two objects on [cuda:0] * 2
+
+
+def flatten_tree(tree, prefix=()):
+    """(dotted key path, array) of read_tree's tree, None leaves left out."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from flatten_tree(v, prefix + (str(k),))
+    elif tree is not None:
+        yield ".".join(prefix), tree
+
+
+def array_record(a) -> dict:
+    """tests/torch_orbax_fixtures.array_record: shape, dtype, sha256 of the
+    C-order bytes."""
+    a = np.ascontiguousarray(a)
+    return {"shape": list(a.shape), "dtype": a.dtype.str,
+            "sha256": hashlib.sha256(a.tobytes()).hexdigest()}
+
+
+def phase_orbax(root: str, init_csv: str, smi) -> dict:
+    """20a. The committed orbax fixtures read on this machine (no orbax,
+    tensorstore or zarr here): every array against the manifest of orbax's
+    own restore; the zstd library the reader took. The train state served
+    by cli.main (GIGAPOSE_TINY=1, model.checkpoint_path= the step
+    directory, the bf16 store: the matching kernel) on phase 10's first
+    ORBAX_CLI_IMAGES images: the nets equal the bridge's state dicts bit for
+    bit, the launches, finite csvs. The refiner served by refine.py
+    (refiner_checkpoint= the JAX out_dir, the device renderer: the
+    rasterizer kernel) on phase 10's first image: finite poses that moved
+    from their inits (the fixture's pose head is not the identity)."""
+    t_phase = time.perf_counter()
+    manifest = json.load(open(osp.join(ORBAX_DIR, "manifest.json")))
+    rec = {"zstd_version": ZSTD.version(), "zstd_library": ZSTD.library()._name}
+    for name, arrays in manifest.items():
+        t0 = time.perf_counter()
+        got = dict(flatten_tree(ORBAX.read_tree(osp.join(ORBAX_DIR, name))))
+        read_s = time.perf_counter() - t0
+        check(sorted(got) == sorted(arrays), f"orbax {name}: other arrays than the manifest's")
+        bad = [k for k, want in arrays.items() if array_record(got[k]) != want]
+        check(not bad, f"orbax {name}: {len(bad)} arrays differ from orbax's restore: {bad[:3]}")
+        rec[name] = dict(arrays=len(arrays), read_s=read_s,
+                         array_bytes=int(sum(np.asarray(v).nbytes for v in got.values())))
+        log("orbax_read", checkpoint=name, arrays=len(arrays), seconds=f"{read_s:.3f}",
+            array_bytes=rec[name]["array_bytes"], zstd=rec["zstd_version"],
+            library=rec["zstd_library"])
+    train = osp.join(ORBAX_DIR, ORBAX_TRAIN)
+    ae_sd, ist_sd, _ = serving_weights(train)
+    tiny = os.environ.get("GIGAPOSE_TINY")
+    os.environ["GIGAPOSE_TINY"] = "1"
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        runner = cli.main([f"machine.root_dir={root}", "test_dataset_name=tudl", "model=large",
+                           "run_id=orbax", "model.serving_quant=off",
+                           f"max_images={ORBAX_CLI_IMAGES}", f"model.checkpoint_path={train}"])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        launched = counts()
+        est = runner.estimator
+        for net, want in ((est.ae_net, ae_sd), (est.ist_net, ist_sd)):
+            sd = net.state_dict()
+            check(sorted(sd) == sorted(want) and all(torch.equal(sd[k].cpu(), want[k])
+                                                     for k in want),
+                  f"orbax cli: the served {type(net).__name__} is not the checkpoint's")
+        forwards = sum(-(-cli_detections(im) // CLI_CHUNK) for im in range(ORBAX_CLI_IMAGES))
+        check(launched == expected_counts(forwards),
+              f"orbax cli: launches {launched}, expected {expected_counts(forwards)}")
+        rows = [r for p in csvs_of(osp.join(root, "results", "large_orbax", "predictions"))
+                for r in bop_io.load_bop_csv(p, extra_column="instance_id" if "Multi" in p
+                                             else None)]
+        check(rows and all(np.isfinite(r["R"]).all() and np.isfinite(r["t"]).all()
+                           for r in rows), "orbax cli: empty or non-finite csv")
+        rec["cli"] = dict(images=runner.timing["images"], forwards=runner.timing["forwards"],
+                          rows=len(rows), wall_s=cli_s, launches=launched)
+        del runner, est
+        RZ.rasterize.launches = 0
+        paths, timing = refine_cli.main([
+            f"machine.root_dir={root}", "test_dataset_name=tudl", "model=large",
+            "run_id=orbax_refine", f"init_loc_path={init_csv}",
+            f"save_dir={osp.join(root, 'results', 'orbax_refine')}", "min_score=0",
+            "max_images=1", "refine_renderer=device",
+            f"refiner_checkpoint={osp.join(ORBAX_DIR, osp.dirname(ORBAX_REFINER))}"])
+        torch.cuda.synchronize()
+    finally:
+        if tiny is None:
+            os.environ.pop("GIGAPOSE_TINY")
+        else:
+            os.environ["GIGAPOSE_TINY"] = tiny
+    refined = bop_io.load_bop_csv(paths[0])
+    key = lambda r: (r["scene_id"], r["im_id"], r["obj_id"])
+    inits: dict = {}
+    for r in bop_io.load_bop_csv(init_csv, extra_column="instance_id"):
+        inits.setdefault(key(r), []).append(r["t"])
+    check(refined and all(np.isfinite(r["R"]).all() and np.isfinite(r["t"]).all()
+                          for r in refined), "orbax refine: empty or non-finite csv")
+    # each refined pose's distance to the nearest init of its object in its image
+    moved = max(min(float(np.abs(r["t"] - t).max()) for t in inits[key(r)]) for r in refined)
+    check(moved > 1e-3 and RZ.rasterize.launches > 0,
+          f"orbax refine: poses moved {moved} mm, rasterizer launches {RZ.rasterize.launches}")
+    rec["refine"] = dict(images=timing["images"], rows=len(refined), max_t_moved_mm=moved,
+                         raster_launches=RZ.rasterize.launches)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log("orbax_serve", cli_images=rec["cli"]["images"], cli_forwards=rec["cli"]["forwards"],
+        cli_rows=rec["cli"]["rows"], cli_s=f"{cli_s:.2f}",
+        match_bf16=launched["match_bf16"], refine_rows=len(refined),
+        refine_t_moved_mm=f"{moved:.4g}", raster_launches=RZ.rasterize.launches,
+        phase_s=f"{rec['phase_s']:.1f}", card=repr(smi))
+    torch.cuda.empty_cache()
+    return rec
+
+
+# 20b in two processes on cuda:0 (gloo): ViT-L in bf16 split over mp = 2
+# against the same net in one process (rank 0); ms per forward, the
+# all-reduce's share, and GSPMD's rounding (each rank's partial rounded to
+# bf16 before the sum) beside the port's (f32 sums, one rounding)
+TP_SCRIPT = r"""
+import json, os, time
+import numpy as np
+import torch
+from gigapose_tpu_torch.parallel import multihost
+rank, world = multihost.maybe_initialize()
+import chip_smoke as CS
+from gigapose_tpu_torch.models import vit as V
+from gigapose_tpu_torch.models.ae_net import AENet
+from gigapose_tpu_torch.parallel import tp as TPM
+from gigapose_tpu_torch.pipeline.estimator import init_random_
+args = json.loads(os.environ["LEG_ARGS"])
+dev = multihost.default_device()
+B, mp, reps, model = args["B"], args["mp"], args["reps"], args["model"]
+x = torch.as_tensor(np.random.default_rng(args["seed"] + 70).normal(
+    size=(B, 3, 224, 224)).astype(np.float32)).to(dev)
+# seeded on the card (both ranks draw the same weights), faster than the CPU
+full = init_random_(AENet(model, compute_dtype="bfloat16").to(dev),
+                    torch.Generator(device=dev).manual_seed(args["seed"]))
+with torch.no_grad():
+    for name, p in full.named_parameters():
+        if name.endswith("gamma"):
+            p.fill_(args["layerscale"])
+groups = TPM.make_dp_mp_groups(1, mp)
+net = AENet(model, compute_dtype="bfloat16", tp=groups)
+net.load_state_dict(TPM.shard_vit_tp(full.state_dict(), groups.mp_rank, mp,
+                                     CS.VIT_CONFIGS[model].num_heads), strict=True)
+net = net.to(dev).eval()
+full.eval()
+out = {"world": world, "mp_rank": groups.mp_rank,
+       "local_params": sum(p.numel() for p in net.parameters()),
+       "whole_params": sum(p.numel() for p in full.parameters())}
+
+
+def timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y = fn()
+    torch.cuda.synchronize()
+    return y, (time.perf_counter() - t0) * 1e3
+
+
+with torch.inference_mode():
+    if rank == 0:  # the one-process forward, alone on the card
+        ref = full(x)
+        out["one_process_ms"] = [timed(lambda: full(x))[1] for _ in range(reps)]
+    del full
+    multihost.barrier()
+    feats = net(x)
+    out["tp_ms"] = [timed(lambda: net(x))[1] for _ in range(reps)]
+    spent, plain_reduce = [], TPM.TPGroups.all_reduce
+
+    def timed_reduce(self, y):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain_reduce(self, y)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t0)
+        return y
+
+    TPM.TPGroups.all_reduce = timed_reduce
+    _, out["instrumented_ms"] = timed(lambda: net(x))
+    TPM.TPGroups.all_reduce = plain_reduce
+    out["all_reduces"], out["all_reduce_ms"] = len(spent), sum(spent) * 1e3
+    plain_rp = V.row_parallel
+
+    def bf16_partials(layer, x, dtype, tp):
+        # GSPMD's bf16 all-reduce: each rank's partial rounded to bf16 first
+        p = torch.nn.functional.linear(x.reshape(-1, x.shape[-1]).to(dtype),
+                                       layer.weight.to(dtype))
+        y = tp.all_reduce(p.float().contiguous()).to(dtype)
+        return (y + layer.bias.to(dtype)).reshape(*x.shape[:-1], layer.out_features)
+
+    V.row_parallel = bf16_partials
+    gspmd = net(x)
+    V.row_parallel = plain_rp
+    if rank == 0:
+        def gaps(a, b):  # per-patch cosine of unit features: 1 - its least and mean
+            cos = (a.double() * b.double()).sum(-1)
+            return dict(cos_gap=float(1 - cos.min()), cos_gap_mean=float(1 - cos.mean()),
+                        max_abs=float((a - b).abs().max()))
+        out["tp_vs_one"] = gaps(feats.float(), ref.float())
+        out["gspmd_vs_one"] = gaps(gspmd.float(), ref.float())
+        out["tp_vs_gspmd"] = gaps(feats.float(), gspmd.float())
+        out["bit_equal_to_one"] = bool(torch.equal(feats, ref))
+        out["shape"] = list(feats.shape)
+with open(os.path.join(os.environ["LEG_OUT"], f"rank{rank}.json"), "w") as f:
+    json.dump(out, f)
+"""
+
+
+def phase_tp(smi) -> dict:
+    """20b. ViT-L bf16 split over TP_MP gloo processes on cuda:0 (NCCL
+    refuses two ranks on one card) at B = TP_B, LayerScale TP_LAYERSCALE:
+    every patch's cosine to the one-process forward's above BF16_COS, both
+    ranks the whole batch; ms per forward (both ranks on one card: overhead,
+    not scaling) against the one-process forward, the all-reduces' share of
+    a forward with each of them synchronized and timed, and GSPMD's rounding
+    of the partials beside the port's."""
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(TP_SCRIPT, dict(B=TP_B, mp=TP_MP, reps=TP_REPS, model=MODEL, seed=SEED,
+                                        layerscale=TP_LAYERSCALE), "tp", n=TP_MP)
+    r0 = ranks[0]
+    check([r["world"] for r in ranks] == [TP_MP] * TP_MP, "tp: not TP_MP processes")
+    check(r0["shape"] == [TP_B, 256, VIT_CONFIGS[MODEL].embed_dim], f"tp: shape {r0['shape']}")
+    check(1 - r0["tp_vs_one"]["cos_gap"] > BF16_COS,
+          f"tp: a patch's cosine to the one-process forward {1 - r0['tp_vs_one']['cos_gap']}")
+    ms = [float(np.median(r["tp_ms"])) for r in ranks]
+    rec = dict(mp=TP_MP, batch=TP_B, tp_ms=max(ms), one_process_ms=float(np.median(
+        r0["one_process_ms"])), all_reduces=r0["all_reduces"],
+        all_reduce_share=max(r["all_reduce_ms"] / r["instrumented_ms"] for r in ranks),
+        local_over_whole_params=r0["local_params"] / r0["whole_params"],
+        **{f"{k}_{m}": v for k in ("tp_vs_one", "gspmd_vs_one", "tp_vs_gspmd")
+           for m, v in r0[k].items()}, bit_equal_to_one=r0["bit_equal_to_one"],
+        leg_s=time.perf_counter() - t0)
+    log("tp", **{k: (f"{v:.4g}" if isinstance(v, float) else v) for k, v in rec.items()},
+        card=repr(smi))
+    return rec
+
+
+def phase_sharded_onboarding(est, store, templates, scene, dev, smi) -> dict:
+    """20c. onboard_templates_sharded of phase 4's objects on
+    [cuda:0] * ONBOARD_SHARDS with the bf16 AE: the store equal to phase 4's
+    bit for bit; then phase 9's request of 32 on it: one matching launch,
+    the forward's outputs equal to phase 4's store's."""
+    poses = [template_object_poses(1).astype(np.float32)] * len(templates)
+    secs = []
+    for _ in range(2):  # the first call warms up as phase 4's cold call did
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sstore = onboard_templates_sharded(est.ae_apply, est.ist_apply, templates, poses,
+                                           [dev] * ONBOARD_SHARDS, feature_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    fields = ("ae_features", "ist_features", "masks", "Ms", "poses", "K")
+    for f in fields:
+        check(torch.equal(getattr(sstore, f), getattr(store, f)),
+              f"sharded onboarding: {f} differs from phase 4's store")
+    rgb, masks, boxes, labels, K, _ = scene
+    take = np.arange(32) % len(labels)
+    batch = prepare_batch(rgb, masks[take], boxes[take], labels[take], K, dev)
+    with torch.inference_mode():
+        want = est(store, batch)
+        reset_counts()
+        got = est(sstore, batch)
+        torch.cuda.synchronize()
+    launched = counts()
+    check(launched == expected_counts(1), f"sharded onboarding: launches {launched}")
+    for name in ("view_ids", "scores", "M", "poses"):
+        check(torch.equal(getattr(got, name), getattr(want, name)),
+              f"sharded onboarding: the forward's {name} differs")
+    rec = dict(shards=ONBOARD_SHARDS, objects=len(templates), views=NUM_VIEWS,
+               s_per_object=secs[-1] / len(templates), cold_s=secs[0],
+               match_bf16_launches=launched["match_bf16"])
+    log("sharded_onboarding", **{k: (f"{v:.4g}" if isinstance(v, float) else v)
+                                 for k, v in rec.items()}, card=repr(smi))
+    del sstore
+    torch.cuda.empty_cache()
+    return rec
+
+
+def add_phase20_launches(kernels: list, orbax_rec: dict, onboard_rec: dict) -> None:
+    """20a's and 20c's launches beside the matching kernel's and the
+    rasterizer's."""
+    for k in kernels:
+        if k["name"] == "fused_matching_bfloat16":
+            k["launches_orbax_cli"] = orbax_rec["cli"]["launches"]["match_bf16"]
+            k["launches_sharded_onboarding_forward"] = onboard_rec["match_bf16_launches"]
+        elif k["name"] == "rasterizer":
+            k["launches_orbax_refine"] = orbax_rec["refine"]["raster_launches"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run never runs on the CPU",
@@ -4637,6 +4957,10 @@ def main() -> int:
     # 18a. the view-sharded store on [cuda:0] * S, on phase 9's request
     sharded = phase_sharded(est, store, store32, scenes[2], dev, smi)
     del store32
+    # 20c. object-parallel onboarding of phase 4's objects; 20b. the ViT split
+    # over two processes
+    onboard_rec = phase_sharded_onboarding(est, store, templates, scenes[2], dev, smi)
+    phase_tp(smi)
 
     # 15.1-15.3: the int8 IST at B=32: its kernels at every convolution shape,
     # the whole int8 IST on phase 9's request, the forward with the int8 AE
@@ -4655,6 +4979,8 @@ def main() -> int:
     # 15.4. the coarse CLI with the static int8 IST, in 10's dataset
     def after_cli(root, csv, info):
         rec = phase_refinement(root, csv, dev, smi)
+        # 20a. the JAX trainers' orbax checkpoints, served (phase 11 wrote the meshes)
+        rec["orbax"] = phase_orbax(root, csv, smi)
         # 18b / 18d. the coarse and the refine CLI in two processes
         rec["multiprocess"] = phase_multiprocess_cli(root, csv, smi)
         rec["templates"] = phase_templates(root, dev, smi)
@@ -4677,6 +5003,7 @@ def main() -> int:
     kernels.append(raster_record(cli_rec["then"]))
     kernels += ist_kernel_records(ist_rec, cli_rec["then"]["ist_cli"])
     add_selfcheck_launches(kernels, selfcheck["launches"])
+    add_phase20_launches(kernels, cli_rec["then"]["orbax"], onboard_rec)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -6,7 +6,9 @@ Usage:
 
 Pipeline: load config -> build the estimator (seeded random weights, or
 the weights at model.checkpoint_path: a checkpoint of the port's trainer, a
-step_*.pt file or its checkpoint directory, or a reference `.ckpt`) ->
+step_*.pt file or its checkpoint directory, one of the JAX trainer, a step_*
+orbax directory or its checkpoint directory, read without orbax, or a
+reference `.ckpt`) ->
 onboard templates -> run the
 BOP test split -> write npz batches + BOP csv under
 <machine.root_dir>/results/<model>_<run_id>/predictions/.
@@ -51,10 +53,8 @@ the batch over them, the port runs one process per card
 vis_every=N writes the correspondence and affine-warp plots of every N-th
 image to <save_dir>/vis (pipeline/runner.py:_dump_vis, utils/vis.py).
 
-Not served yet, and refused with the ROADMAP item to look up: an orbax
-checkpoint directory of the JAX trainer (A12). An override whose key the
-CLI does not read (one of test.py's training or loader options) raises
-ValueError: it would change nothing.
+An override whose key the CLI does not read (one of test.py's training or
+loader options) raises ValueError: it would change nothing.
 """
 
 from __future__ import annotations
@@ -159,9 +159,10 @@ def build_estimator(cfg: Config, tiny: bool = False) -> GigaPoseEstimator:
 
 def load_checkpoint_weights(est: GigaPoseEstimator, path: str) -> None:
     """Load model.checkpoint_path into the estimator's nets: a checkpoint of
-    the port's trainer (a step_*.pt file, or its checkpoint directory) or a
-    reference lightning `.ckpt`. A directory without a step_*.pt (an orbax
-    train state) raises NotImplementedError."""
+    the port's or of the JAX trainer (a step_*.pt file, a step_* orbax
+    directory, or the checkpoint directory of either) or a reference
+    lightning `.ckpt`. A directory with no checkpoint raises
+    FileNotFoundError."""
     if osp.isdir(path) or path.endswith(".pt"):
         if not osp.exists(path):
             raise FileNotFoundError(f"model.checkpoint_path={path}: no such checkpoint")
@@ -172,7 +173,7 @@ def load_checkpoint_weights(est: GigaPoseEstimator, path: str) -> None:
         raise FileNotFoundError(f"model.checkpoint_path={path}: no such .ckpt or .pt file")
     est.ae_net.load_state_dict(ae_sd, strict=True)
     est.ist_net.load_state_dict(ist_sd, strict=True)
-    print(f"Loaded torch checkpoint {path}")
+    print(f"Loaded checkpoint {path}")
 
 
 def _maybe_quantize(est: GigaPoseEstimator, cfg: Config) -> GigaPoseEstimator:

@@ -18,14 +18,26 @@ from gigapose_tpu_torch.models.vit import VIT_CONFIGS, ViT
 
 
 class AENet(nn.Module):
+    """`tp` (parallel/tp.TPGroups, JAX's tp_mesh): the ViT's Megatron shard
+    on this rank (models/vit.py), and the batch split over the dp group
+    where dp divides it, the whole batch's features gathered back on every
+    rank. None: one device, as before."""
+
     def __init__(self, model_name: str = "dinov2_vitl14", compute_dtype: Optional[str] = None,
-                 remat: Union[bool, str] = False):
+                 remat: Union[bool, str] = False, tp=None):
         super().__init__()
         self.model_name = model_name
+        self.tp = tp
         self.vit = ViT(dataclasses.replace(VIT_CONFIGS[model_name], compute_dtype=compute_dtype,
-                                           remat=remat))
+                                           remat=remat), tp=tp)
+
+    def features(self, images: torch.Tensor) -> torch.Tensor:
+        feats = self.vit(images)["x_prenorm"][:, 1:, :]
+        return feats / torch.linalg.vector_norm(feats, dim=-1, keepdim=True).clamp(min=1e-12)
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         """(B, 3, H, W) preprocessed crops -> (B, P, C) L2-normalized features."""
-        feats = self.vit(images)["x_prenorm"][:, 1:, :]
-        return feats / torch.linalg.vector_norm(feats, dim=-1, keepdim=True).clamp(min=1e-12)
+        rows = None if self.tp is None else self.tp.split_rows(images)
+        if rows is None:
+            return self.features(images)
+        return self.tp.gather_rows(self.features(rows))

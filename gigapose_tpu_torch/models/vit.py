@@ -24,6 +24,12 @@ jax.checkpoint_policies entry, mapped onto selective checkpointing
 every output; dots_saveable and checkpoint_dots save the matmul outputs (mm,
 bmm, addmm) and recompute the rest; dots_with_no_batch_dims_saveable saves
 mm and addmm but not the batched bmm. Any other name raises.
+
+`tp` (parallel/tp.TPGroups, the JAX ViTConfig's tp_mesh): Attention, Mlp
+and SwiGLU hold this rank's Megatron shard (load parallel/tp.shard_vit_tp's
+state dict) and sum their row-split product over the mp group; the
+attention stays whole where mp does not divide the heads. Inference only.
+None (the default) is the forward above, unchanged.
 """
 
 from __future__ import annotations
@@ -39,6 +45,8 @@ from torch.utils.checkpoint import (
     checkpoint,
     create_selective_checkpoint_contexts,
 )
+
+from gigapose_tpu_torch.parallel.tp import heads_split, local_width, row_parallel
 
 _aten = torch.ops.aten
 _DOTS = (_aten.mm.default, _aten.bmm.default, _aten.addmm.default)
@@ -125,67 +133,83 @@ class LayerScale(nn.Module):
         return x * self.gamma  # a bf16 x promotes to f32 here, as in flax
 
 
+def _out(layer: nn.Linear, x, dtype, tp):
+    """The product of a layer that tensor parallelism splits by its input
+    columns: plain, or parallel/tp.row_parallel's sum over the mp group."""
+    return linear(layer, x, dtype) if tp is None else row_parallel(layer, x, dtype, tp)
+
+
 class Attention(nn.Module):
-    def __init__(self, dim: int, num_heads: int, dtype=None):
+    """With `tp` (parallel/tp.TPGroups) whose mp divides the heads: this
+    rank's heads of q, k and v, and proj's matching input columns."""
+
+    def __init__(self, dim: int, num_heads: int, dtype=None, tp=None):
         super().__init__()
-        self.num_heads = num_heads
+        self.tp = tp if tp is not None and heads_split(num_heads, tp.mp) else None
+        mp = 1 if self.tp is None else tp.mp
+        self.num_heads, self.local_heads = num_heads, num_heads // mp
         self.dtype = dtype
-        self.qkv = nn.Linear(dim, 3 * dim)
-        self.proj = nn.Linear(dim, dim)
+        self.qkv = nn.Linear(dim, 3 * dim // mp)
+        self.proj = nn.Linear(dim // mp, dim)
 
     def forward(self, x):
         B, N, C = x.shape
-        H = self.num_heads
-        hd = C // H
+        H = self.local_heads
+        hd = C // self.num_heads
         qkv = linear(self.qkv, x, self.dtype).reshape(B, N, 3, H, hd)
         q, k, v = qkv.unbind(dim=2)  # (B, N, H, hd)
         attn = torch.einsum("bqhd,bkhd->bhqk", q * hd**-0.5, k)
         attn = torch.softmax(attn.to(torch.float32), dim=-1).to(q.dtype)
-        out = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(B, N, C)
-        return linear(self.proj, out, self.dtype)
+        out = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(B, N, H * hd)
+        return _out(self.proj, out, self.dtype, self.tp)
 
 
 class Mlp(nn.Module):
-    def __init__(self, dim: int, hidden: int, dtype=None):
+    """With `tp`: this rank's fc1 rows and fc2 input columns."""
+
+    def __init__(self, dim: int, hidden: int, dtype=None, tp=None):
         super().__init__()
-        self.dtype = dtype
-        self.fc1 = nn.Linear(dim, hidden)
-        self.fc2 = nn.Linear(hidden, dim)
+        self.dtype, self.tp = dtype, tp
+        h = hidden if tp is None else local_width(hidden, tp.mp, "MLP hidden")
+        self.fc1 = nn.Linear(dim, h)
+        self.fc2 = nn.Linear(h, dim)
 
     def forward(self, x):
         # erf GELU (flax nn.gelu(approximate=False)); tanh-GELU belongs only
         # to the int8 kernels of the reference
-        return linear(self.fc2, F.gelu(linear(self.fc1, x, self.dtype)), self.dtype)
+        return _out(self.fc2, F.gelu(linear(self.fc1, x, self.dtype)), self.dtype, self.tp)
 
 
 class SwiGLU(nn.Module):
-    """DINOv2-giant FFN: SwiGLU with a fused w12 projection."""
+    """DINOv2-giant FFN: SwiGLU with a fused w12 projection. With `tp`: this
+    rank's rows of both halves of w12 and w3's matching input columns."""
 
-    def __init__(self, dim: int, hidden: int, dtype=None):
+    def __init__(self, dim: int, hidden: int, dtype=None, tp=None):
         super().__init__()
-        self.dtype = dtype
-        self.w12 = nn.Linear(dim, 2 * hidden)
-        self.w3 = nn.Linear(hidden, dim)
+        self.dtype, self.tp = dtype, tp
+        h = hidden if tp is None else local_width(hidden, tp.mp, "SwiGLU hidden")
+        self.w12 = nn.Linear(dim, 2 * h)
+        self.w3 = nn.Linear(h, dim)
 
     def forward(self, x):
         x1, x2 = linear(self.w12, x, self.dtype).chunk(2, dim=-1)
-        return linear(self.w3, F.silu(x1) * x2, self.dtype)
+        return _out(self.w3, F.silu(x1) * x2, self.dtype, self.tp)
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: ViTConfig):
+    def __init__(self, cfg: ViTConfig, tp=None):
         super().__init__()
         dt = cfg.matmul_dtype
         self.norm1 = nn.LayerNorm(cfg.embed_dim, eps=1e-6)
-        self.attn = Attention(cfg.embed_dim, cfg.num_heads, dtype=dt)
+        self.attn = Attention(cfg.embed_dim, cfg.num_heads, dtype=dt, tp=tp)
         self.ls1 = LayerScale(cfg.embed_dim, cfg.layerscale_init)
         self.norm2 = nn.LayerNorm(cfg.embed_dim, eps=1e-6)
         hidden = int(cfg.embed_dim * cfg.mlp_ratio)
         if cfg.ffn_layer == "swiglu":
             hidden = (int(hidden * 2 / 3) + 7) // 8 * 8  # dinov2's rounding
-            self.mlp = SwiGLU(cfg.embed_dim, hidden, dtype=dt)
+            self.mlp = SwiGLU(cfg.embed_dim, hidden, dtype=dt, tp=tp)
         else:
-            self.mlp = Mlp(cfg.embed_dim, hidden, dtype=dt)
+            self.mlp = Mlp(cfg.embed_dim, hidden, dtype=dt, tp=tp)
         self.ls2 = LayerScale(cfg.embed_dim, cfg.layerscale_init)
 
     def forward(self, x):
@@ -223,7 +247,7 @@ class ViT(nn.Module):
     """(B, 3, H, W), H and W multiples of patch_size -> dict(x_prenorm, x_norm),
     each (B, 1 + P, C) with tokens [cls, patches]."""
 
-    def __init__(self, cfg: ViTConfig, pos_embed_size: int = 16):
+    def __init__(self, cfg: ViTConfig, pos_embed_size: int = 16, tp=None):
         super().__init__()
         self.cfg = cfg
         self.pos_embed_size = pos_embed_size
@@ -233,7 +257,7 @@ class ViT(nn.Module):
         self.pos_embed = nn.Parameter(torch.zeros(1, 1 + pos_embed_size**2, C))
         if cfg.num_register_tokens:
             self.register_tokens = nn.Parameter(torch.zeros(1, cfg.num_register_tokens, C))
-        self.blocks = nn.ModuleList(Block(cfg) for _ in range(cfg.depth))
+        self.blocks = nn.ModuleList(Block(cfg, tp) for _ in range(cfg.depth))
         self.norm = nn.LayerNorm(C, eps=1e-6)
 
     def forward(self, images: torch.Tensor) -> dict:

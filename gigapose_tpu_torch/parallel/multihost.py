@@ -164,22 +164,25 @@ class _AllGatherRows(torch.autograd.Function):
     (an all_reduce, then the slice: no all_to_all)."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, group):
         x = x.contiguous()
-        parts = [torch.empty_like(x) for _ in range(process_count())]
-        dist.all_gather(parts, x)
-        ctx.rows = x.shape[0]
+        parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, x, group=group)
+        ctx.rows, ctx.group = x.shape[0], group
         return torch.cat(parts)
 
     @staticmethod
     def backward(ctx, g):
         g = g.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(g)
-        lo = process_index() * ctx.rows
-        return g[lo:lo + ctx.rows]
+        dist.all_reduce(g, group=ctx.group)
+        lo = dist.get_rank(ctx.group) * ctx.rows
+        return g[lo:lo + ctx.rows], None
 
 
-def all_gather_rows(x: torch.Tensor) -> torch.Tensor:
+def all_gather_rows(x: torch.Tensor, group=None) -> torch.Tensor:
     """Autograd-aware concatenation of every process's `x` (the same shape on
-    each) along dim 0, in process order; x itself in one process."""
-    return _AllGatherRows.apply(x) if process_count() > 1 else x
+    each) along dim 0, in process order; x itself in one process. `group`:
+    the processes of a torch.distributed group (parallel/tp.py's dp axis)
+    instead of all of them."""
+    n = process_count() if group is None else dist.get_world_size(group)
+    return _AllGatherRows.apply(x, group) if n > 1 else x

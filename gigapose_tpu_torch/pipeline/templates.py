@@ -10,12 +10,16 @@ the device:
 - Ms           (O, V, 3, 3)      crop affines
 - poses        (O, V, 4, 4)      object poses of each view
 - K            (O, 3, 3)         template intrinsics
+
+`onboard_templates` onboards the objects one after another on one device;
+`onboard_templates_sharded` splits them over a list of devices (the JAX
+package's object-parallel onboarding over its mesh's "dp" axis).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -137,6 +141,65 @@ def onboard_templates(
         entries.append({k: entry[k] for k in ("ae_features", "ist_features", "masks",
                                               "Ms", "poses", "K")})
     stack = lambda name: torch.stack([e[name] for e in entries])
+    return TemplateStore(
+        ae_features=stack("ae_features"),
+        ist_features=stack("ist_features"),
+        masks=stack("masks"),
+        Ms=stack("Ms"),
+        poses=stack("poses"),
+        K=stack("K"),
+    )
+
+
+def onboard_templates_sharded(
+    ae_apply,
+    ist_apply,
+    rgbas_per_object,  # (O, V, 4, H, W) array or a list of same-shape arrays
+    poses_per_object,  # (O, V, 4, 4)
+    devices: Sequence,
+    Ks_per_object=None,
+    **kwargs,
+) -> TemplateStore:
+    """Object-parallel onboarding (port of the JAX package's, which vmaps
+    the per-object program over an object axis sharded on its mesh's "dp"
+    devices and replicates the store on the way out).
+
+    The objects are padded to a multiple of len(devices) (a padding object
+    keeps one nonzero alpha pixel, so its box is defined, as in JAX), device
+    s onboards the s-th contiguous block of them (onboard_object, with
+    `kwargs`), and the store is gathered on devices[0] without the padding.
+    `ae_apply` / `ist_apply`: one callable for every device, or one per
+    device (the nets' copies there). A device may repeat: [cuda:0] * S runs
+    the S shards on one card. All objects share the template count and
+    image size, as every template set does. On one device the result is
+    onboard_templates' bit for bit."""
+    devices = [torch.device(d) for d in devices]
+    S = len(devices)
+    if S < 1:
+        raise ValueError("onboard_templates_sharded needs at least one device")
+    per_device = lambda fn: list(fn) if isinstance(fn, (list, tuple)) else [fn] * S
+    ae_fns, ist_fns = per_device(ae_apply), per_device(ist_apply)
+    if len(ae_fns) != S or len(ist_fns) != S:
+        raise ValueError(f"{len(ae_fns)} AE and {len(ist_fns)} IST callables for {S} devices")
+    rgbas = np.stack([np.asarray(r) for r in rgbas_per_object])
+    poses = np.stack([np.asarray(p) for p in poses_per_object])
+    O = rgbas.shape[0]
+    Op = -(-O // S) * S
+    if Op != O:
+        pad = np.zeros((Op - O,) + rgbas.shape[1:], rgbas.dtype)
+        pad[:, :, 3, 0, 0] = 1
+        rgbas = np.concatenate([rgbas, pad])
+        poses = np.concatenate([poses, np.tile(np.eye(4, dtype=poses.dtype),
+                                               (Op - O,) + poses.shape[1:-2] + (1, 1))])
+    per = Op // S
+    entries = []
+    for s, dev in enumerate(devices):
+        for o in range(s * per, (s + 1) * per):
+            K = None if Ks_per_object is None or o >= O else Ks_per_object[o]
+            entries.append(onboard_object(ae_fns[s], ist_fns[s], rgbas[o], poses[o], dev, K,
+                                          **kwargs))
+    home = devices[0]
+    stack = lambda name: torch.stack([e[name].to(home) for e in entries[:O]])
     return TemplateStore(
         ae_features=stack("ae_features"),
         ist_features=stack("ist_features"),

@@ -38,12 +38,13 @@ renders, 8 crop points; MegaPose width 0.125, 60x80 renders, 8 points.
 
 refiner_checkpoint= loads the GigaPose refiner's and scorer's weights from
 the file (or its directory) that `python -m
-gigapose_tpu_torch.scripts.train_refiner` saves; its widths and render size
-must be those of the refiner built here (full width, or GIGAPOSE_TINY's),
-and with the MegaPose refiner it raises (that refiner reads
-megapose_*_ckpt). Refused, with the ROADMAP item to look up: a JAX orbax
-refiner checkpoint (A12); refine_pipeline_chunks above 1, the pipelined host
-loop (A13c).
+gigapose_tpu_torch.scripts.train_refiner` saves, or from the orbax
+checkpoint of the JAX package's train_refiner (its out_dir or
+<out_dir>/refiner, read without orbax); its widths (and the file's render
+size) must be those of the refiner built here (full width, or
+GIGAPOSE_TINY's), and with the MegaPose refiner it raises (that refiner
+reads megapose_*_ckpt). Refused, with the ROADMAP item to look up:
+refine_pipeline_chunks above 1, the pipelined host loop (A13c).
 
 Several processes (parallel/multihost.py's launch contract, as the coarse
 CLI) split the images round-robin, one card each; process 0 writes the csv

@@ -5,8 +5,15 @@ One torch.save file, <out_dir>/refiner.pt, holds both nets' state dicts
 (BatchNorm running statistics included), their widths and blocks, and the
 render size. `load_refiner_checkpoint` reads it with
 torch.load(weights_only=True); a width, blocks or render size other than
-the refiner's raises, and so does the JAX package's orbax directory
-(reading it is ROADMAP A12).
+the refiner's raises.
+
+It also reads the JAX package's checkpoint (gigapose_tpu/scripts/
+train_refiner.py: <out_dir>/refiner/, an orbax directory of
+{"refiner_vars", "scorer_vars"}, each {"params", "batch_stats"}) without
+orbax (utils/orbax.py), through models/convert.py's refiner_flax_to_torch.
+That directory holds no widths or render size: a net whose parameter
+shapes differ from the refiner's raises ValueError naming them, and the
+render size is the refiner's own.
 """
 
 from __future__ import annotations
@@ -16,6 +23,9 @@ import os.path as osp
 from typing import Dict
 
 import torch
+
+from gigapose_tpu_torch.models.convert import refiner_flax_to_torch
+from gigapose_tpu_torch.utils import orbax
 
 CKPT_NAME = "refiner.pt"
 FORMAT = "gigapose_tpu_torch.refiner/1"
@@ -39,29 +49,48 @@ def save_refiner_checkpoint(out_dir: str, refiner) -> str:
     return path
 
 
-def _is_orbax(path: str) -> bool:
-    """An orbax checkpoint directory, as the JAX package's trainer writes
-    (<out_dir>/refiner/ with orbax's metadata files)."""
-    if osp.isdir(osp.join(path, "refiner")):
-        return True
-    return osp.isdir(path) and any(f.startswith(("_METADATA", "_CHECKPOINT_METADATA", "manifest"))
-                                   or f in ("checkpoint", "_sharding") for f in os.listdir(path))
+def _orbax_dir(path: str):
+    """The JAX trainer's orbax directory at `path` or at <path>/refiner, if any."""
+    for p in (path, osp.join(path, "refiner")):
+        if orbax.is_checkpoint(p):
+            return p
+    return None
+
+
+def _load_jax(path: str, refiner) -> None:
+    tree = orbax.read_tree(path)
+    if set(tree) != {"refiner_vars", "scorer_vars"}:
+        raise ValueError(f"{path} is not a refiner checkpoint of the JAX trainer (its keys: "
+                         f"{sorted(tree)})")
+    for name, net in (("refiner_vars", refiner.refiner_net), ("scorer_vars", refiner.scorer_net)):
+        sd, mine = refiner_flax_to_torch(tree[name]), net.state_dict()
+        diff = {k: (tuple(sd[k].shape) if k in sd else None,
+                    tuple(mine[k].shape) if k in mine else None)
+                for k in set(sd) | set(mine)
+                if k not in sd or k not in mine or sd[k].shape != mine[k].shape}
+        if diff:
+            shown = dict(sorted(diff.items())[:6])
+            raise ValueError(f"{path}: {name} was trained with other nets than this refiner's "
+                             f"(width or blocks; checkpoint, refiner shapes of {len(diff)} "
+                             f"tensors): {shown}")
+        net.load_state_dict({k: v.to(mine[k].dtype) for k, v in sd.items()}, strict=True)
 
 
 def load_refiner_checkpoint(path: str, refiner):
-    """Load save_refiner_checkpoint's file (or the directory that holds it)
-    into `refiner`'s nets, on their device -> the refiner. A JAX orbax
-    directory, or a checkpoint whose widths, blocks or render size differ
-    from the refiner's, raises and says why."""
+    """Load save_refiner_checkpoint's file (or the directory that holds it),
+    or the JAX trainer's orbax checkpoint (its out_dir or <out_dir>/refiner),
+    into `refiner`'s nets, on their device -> the refiner. A checkpoint whose
+    widths, blocks or (for this module's file) render size differ from the
+    refiner's raises ValueError and says why."""
     if osp.isdir(path):
+        jax_dir = _orbax_dir(path)
         if osp.isfile(osp.join(path, CKPT_NAME)):
             path = osp.join(path, CKPT_NAME)
-        elif _is_orbax(path):
-            raise NotImplementedError(
-                f"{path} is an orbax checkpoint of the JAX package's trainer: reading it "
-                f"is ROADMAP A12; train with gigapose_tpu_torch.scripts.train_refiner")
+        elif jax_dir:
+            _load_jax(jax_dir, refiner)
+            return refiner
         else:
-            raise FileNotFoundError(f"no {CKPT_NAME} in {path}")
+            raise FileNotFoundError(f"no {CKPT_NAME} and no orbax checkpoint in {path}")
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     if not isinstance(ckpt, dict) or ckpt.get("format") != FORMAT:
         raise ValueError(f"{path} is not a refiner checkpoint of this package ({FORMAT})")

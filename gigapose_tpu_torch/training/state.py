@@ -187,6 +187,14 @@ class TrainState:
                              f"this run {sorted(self.opt_state)}")
         for net, st in sd["optimizer"].items():
             mine = self.opt_state[net]
+            for m in ("mu", "nu"):
+                if set(st[m]) != set(mine[m]):
+                    raise ValueError(f"the checkpoint's {net} {m} holds other parameters: "
+                                     f"{sorted(set(st[m]) ^ set(mine[m]))[:4]}")
+                for k, v in st[m].items():
+                    if v.shape != mine[m][k].shape:
+                        raise ValueError(f"the checkpoint's {net} {m}[{k}] is {tuple(v.shape)}, "
+                                         f"this net's {tuple(mine[m][k].shape)}")
             mine["count"] = int(st["count"])
             for m in ("mu", "nu"):
                 for k, v in st[m].items():

@@ -344,11 +344,15 @@ def _random_nets(seed):
     return est
 
 
-def test_reference_checkpoint_loads_as_through_jax(tmp_path):
+def test_reference_checkpoint_loads_as_through_jax(tmp_path, monkeypatch):
     """The port's gigapose_ckpt_to_torch gives the state dicts of the JAX
     path (gigapose_ckpt_to_flax, then the flax -> torch bridge), and
     build_estimator loads model.checkpoint_path=*.ckpt; a missing or an
-    unknown key raises."""
+    unknown key raises, and so does a directory that holds no checkpoint.
+    cli.main serves the JAX trainer's orbax checkpoint directory (its
+    save_checkpoint of a TrainState of the tiny nets, read without orbax):
+    the estimator's nets are the bridge's state dicts of that state, bit for
+    bit."""
     from gigapose_tpu.models.convert import gigapose_ckpt_to_flax
 
     est = _random_nets(7)
@@ -378,5 +382,25 @@ def test_reference_checkpoint_loads_as_through_jax(tmp_path):
             cli.build_estimator(load_config("test", tiny + [f"model.checkpoint_path={bad_path}"]))
     with pytest.raises(FileNotFoundError):
         cli.build_estimator(load_config("test", tiny + ["model.checkpoint_path=/nonexistent.ckpt"]))
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(FileNotFoundError, match="no checkpoint"):
         cli.build_estimator(load_config("test", tiny + [f"model.checkpoint_path={tmp_path}"]))
+
+    from gigapose_tpu.training.checkpoint import save_checkpoint
+    from tests.torch_orbax_fixtures import train_state
+
+    jstate = train_state()
+    ckpt_dir = str(tmp_path / "jax_checkpoints")
+    save_checkpoint(ckpt_dir, jstate, 3)
+    root = synthetic_bop.build(str(tmp_path / "bop"))
+    monkeypatch.setenv("GIGAPOSE_TINY", "1")
+    runner = cli.main([f"machine.root_dir={root}", "test_dataset_name=tudl", "device=cpu",
+                       "run_id=orbax", "data.template.num_templates=8",
+                       f"model.checkpoint_path={ckpt_dir}"])
+    tree = lambda t: jax.tree_util.tree_map(np.asarray, t)
+    want = convert.train_state_flax_to_torch(tree(jstate.ae_params), tree(jstate.ist_params),
+                                             tree(jstate.ist_batch_stats))
+    for net, want_sd in zip((runner.estimator.ae_net, runner.estimator.ist_net), want):
+        got = net.state_dict()
+        assert sorted(got) == sorted(want_sd)
+        assert all(torch.equal(got[k], want_sd[k]) for k in want_sd)
+    assert runner.timing["images"] == 1 and len(_csv(root, "orbax", False)) == 2

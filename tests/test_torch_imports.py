@@ -1,9 +1,11 @@
 """The port imports neither jax nor the JAX package.
 
 The GPU machine that runs the port has PyTorch and the CUDA toolkit but no
-jax, flax, PIL or yaml, and every gigapose_tpu sub-package pulls jax in
-through its __init__. A fresh interpreter imports every gigapose_tpu_torch
-module and chip_smoke, then reports which of those names reached sys.modules.
+jax, flax, PIL, yaml, orbax, tensorstore, zarr or zstandard (the port reads
+orbax checkpoints with its own reader), and every gigapose_tpu sub-package
+pulls jax in through its __init__. A fresh interpreter imports every
+gigapose_tpu_torch module and chip_smoke, then reports which of those names
+reached sys.modules.
 """
 
 import json
@@ -15,7 +17,8 @@ from pathlib import Path
 import pytest
 
 REPO = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "flax", "PIL", "yaml", "gigapose_tpu")
+FORBIDDEN = ("jax", "flax", "PIL", "yaml", "gigapose_tpu", "orbax", "tensorstore", "zarr",
+             "zstandard")
 
 SCRIPT = r"""
 import importlib, json, pkgutil, sys
@@ -72,6 +75,8 @@ def test_port_imports_no_jax_pil_yaml_or_jax_package():
                      "gigapose_tpu_torch.refiner.depth_refiner",
                      "gigapose_tpu_torch.parallel.multihost", "gigapose_tpu_torch.parallel.mesh",
                      "gigapose_tpu_torch.parallel.sharded_store",
+                     "gigapose_tpu_torch.parallel.tp", "gigapose_tpu_torch.utils.zstd",
+                     "gigapose_tpu_torch.utils.ocdbt", "gigapose_tpu_torch.utils.orbax",
                      "gigapose_tpu_torch.models.flax_bn",
                      "gigapose_tpu_torch.scripts.synthetic_bop",
                      "gigapose_tpu_torch.scripts.selfcheck_e2e",

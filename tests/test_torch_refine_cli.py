@@ -23,6 +23,7 @@ tolerance there).
 
 import os
 import os.path as osp
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -34,6 +35,7 @@ from gigapose_tpu.refiner import megapose_refiner as jax_megapose
 from gigapose_tpu.refiner import refiner as jax_refiner
 from gigapose_tpu.refiner.network import CoarseScorerNet as JScorer
 from gigapose_tpu.refiner.network import RefinerNet as JRefiner
+from gigapose_tpu.scripts.train_refiner import save_refiner_checkpoint as jax_save_refiner
 from gigapose_tpu_torch import refine
 from gigapose_tpu_torch.dataloader import bop_io
 from gigapose_tpu_torch.models.convert import refiner_flax_to_torch
@@ -63,17 +65,18 @@ def _coarse_csv(root, obj_ids=(1, 2), scores=((0.6, 0.5, 0.4), (0.2, 0.15, 0.1))
     return path
 
 
+def _jax_create(mesh_paths, seed=0, config=jax_refiner.RefinerConfig(), refiner_width=64,
+                scorer_width=32):
+    rnet, snet = JRefiner(width=refiner_width), JScorer(width=scorer_width)
+    return jax_refiner.RenderCompareRefiner(
+        rnet, jax_vars(rnet, 1), snet, jax_vars(snet, 4),
+        jax_refiner.MeshStore(mesh_paths, config.n_sample_points), config)
+
+
 @pytest.fixture
 def weights(monkeypatch):
     """The same seeded variables in both CLIs' refiners (the JAX create
     skips flax's init, which takes tens of seconds on the CPU)."""
-    def jax_create(mesh_paths, seed=0, config=jax_refiner.RefinerConfig(), refiner_width=64,
-                   scorer_width=32):
-        rnet, snet = JRefiner(width=refiner_width), JScorer(width=scorer_width)
-        return jax_refiner.RenderCompareRefiner(
-            rnet, jax_vars(rnet, 1), snet, jax_vars(snet, 4),
-            jax_refiner.MeshStore(mesh_paths, config.n_sample_points), config)
-
     build = refine.build_refiner
 
     def port_build(cfg, mesh_paths, tiny=False):
@@ -82,7 +85,7 @@ def weights(monkeypatch):
         ref.scorer_net.load_state_dict(refiner_flax_to_torch(jax_vars(JScorer(width=8), 4)))
         return ref
 
-    monkeypatch.setattr(jax_refiner.RenderCompareRefiner, "create", staticmethod(jax_create))
+    monkeypatch.setattr(jax_refiner.RenderCompareRefiner, "create", staticmethod(_jax_create))
     monkeypatch.setattr(refine, "build_refiner", port_build)
     monkeypatch.setenv("GIGAPOSE_TINY", "1")
 
@@ -170,9 +173,12 @@ def test_refine_cli_writes_the_jax_csv(tmp_path, weights):
 
 def test_refine_cli_drops_weak_instances_and_refuses(tmp_path, monkeypatch):
     """min_score (default 0.25) drops an instance whose best hypothesis is
-    weaker; the options that are not ported raise with their ROADMAP item;
-    the MegaPose options no longer do; a hypothesis of an object without a
-    mesh raises ValueError naming both."""
+    weaker; the option that is not ported raises with its ROADMAP item; the
+    MegaPose options no longer do; a hypothesis of an object without a mesh
+    raises ValueError naming both. refiner_checkpoint= serves the JAX
+    refiner trainer's orbax checkpoint (its save_refiner_checkpoint of
+    other seeded nets than the CLIs build): the rows of refine.py serving
+    the same directory."""
     root = synthetic_bop.build(str(tmp_path))
     monkeypatch.setenv("GIGAPOSE_TINY", "1")
     base = [f"machine.root_dir={root}", "test_dataset_name=tudl",
@@ -184,12 +190,18 @@ def test_refine_cli_drops_weak_instances_and_refuses(tmp_path, monkeypatch):
         for megapose in ([], ["refiner_type=megapose"], ["coarse_mode=so3grid"]):
             with pytest.raises(RuntimeError, match="device=cpu"):
                 refine.main(base + megapose)
+    with pytest.raises(NotImplementedError, match="A13c"):
+        refine.main(base + ["device=cpu", "refine_pipeline_chunks=2"])
     orbax = osp.join(root, "orbax")
-    os.makedirs(osp.join(orbax, "refiner"))  # the JAX trainer's layout
-    for option, item in ((f"refiner_checkpoint={orbax}", "A12"),
-                         ("refine_pipeline_chunks=2", "A13c")):
-        with pytest.raises(NotImplementedError, match=item):
-            refine.main(base + ["device=cpu", option])
+    jax_save_refiner(orbax, SimpleNamespace(refiner_vars=jax_vars(JRefiner(width=8), 2),
+                                            scorer_vars=jax_vars(JScorer(width=8), 5)))
+    monkeypatch.setattr(jax_refiner.RenderCompareRefiner, "create", staticmethod(_jax_create))
+    served = base + ["min_score=0", f"refiner_checkpoint={orbax}"]
+    jax_refine.main(served + ["run_id=jax", f"save_dir={root}/jax"])
+    refine.main(served + ["device=cpu", "run_id=port", f"save_dir={root}/port"])
+    got, want = _refined(root, "port"), _refined(root, "jax")
+    assert len(got) == 2
+    _same_rows(got, want)
     with pytest.raises(FileNotFoundError, match="ckpt"):  # the port's checkpoint is read
         refine.main(base + ["device=cpu", f"refiner_checkpoint={root}/ckpt.pt"])
     for option in ("megapose_refiner_ckpt=x", "megapose_coarse_ckpt=x",

@@ -392,9 +392,11 @@ def test_train_refiner_matches_jax(cube):
 def test_train_refiner_cli_round_trip(tmp_path, monkeypatch):
     """The script trains on the fixture's models (2 steps) and saves; a
     fresh refiner loads the file; refine.py serves it with
-    refiner_checkpoint=; an orbax directory, a width or render size other
-    than the refiner's, an unknown key and (without a card) no device
-    raise."""
+    refiner_checkpoint=. The JAX package's train_refiner checkpoint (an
+    orbax directory, its save_refiner_checkpoint) loads bit for bit as the
+    bridge gives its variables, and refine.py serves it too; a width or
+    render size other than the refiner's, a directory with no checkpoint,
+    an unknown key and (without a card) no device raise."""
     root = synthetic_bop.build(str(tmp_path))
     cad = osp.join(root, "datasets", "tudl", "models")
     out = str(tmp_path / "ckpt")
@@ -424,11 +426,32 @@ def test_train_refiner_cli_round_trip(tmp_path, monkeypatch):
     rows = bop_io.load_bop_csv(paths[0])
     assert len(rows) == 2 and all(np.isfinite(r["R"]).all() and np.isfinite(r["t"]).all()
                                   for r in rows)
-    # a JAX orbax directory, another width or render size
-    orbax = tmp_path / "orbax"
-    (orbax / "refiner").mkdir(parents=True)
-    with pytest.raises(NotImplementedError, match="orbax.*A12"):
-        refine.main(base + ["run_id=orbax", f"refiner_checkpoint={orbax}"])
+    # the JAX trainer's orbax directory, then other widths or render size
+    from types import SimpleNamespace
+
+    from gigapose_tpu.scripts.train_refiner import save_refiner_checkpoint as jax_save
+
+    orbax = str(tmp_path / "orbax")
+    jvars = SimpleNamespace(refiner_vars=jax_vars(JRefiner(width=8), 2),
+                            scorer_vars=jax_vars(JScorer(width=8), 5))
+    jax_save(orbax, jvars)
+    CK.load_refiner_checkpoint(orbax, fresh)
+    for net, v in ((fresh.refiner_net, jvars.refiner_vars), (fresh.scorer_net, jvars.scorer_vars)):
+        want, got = refiner_flax_to_torch(jax.tree_util.tree_map(np.asarray, v)), net.state_dict()
+        assert sorted(got) == sorted(want) and all(torch.equal(got[k], want[k]) for k in want)
+    served, _ = refine.main(base + ["run_id=orbax", f"save_dir={root}/orbax",
+                                    f"refiner_checkpoint={orbax}"])
+    orbax_rows = bop_io.load_bop_csv(served[0])
+    assert len(orbax_rows) == 2 and all(np.isfinite(r["R"]).all() for r in orbax_rows)
+    assert max(np.abs(a["R"] - b["R"]).max() for a, b in zip(orbax_rows, rows)) > 1e-4
+    wide = str(tmp_path / "orbax_wide")
+    jax_save(wide, SimpleNamespace(refiner_vars=jax_vars(JRefiner(width=16), 2),
+                                   scorer_vars=jvars.scorer_vars))
+    with pytest.raises(ValueError, match="refiner_vars.*width"):
+        CK.load_refiner_checkpoint(wide, fresh)
+    (tmp_path / "empty" / "refiner").mkdir(parents=True)
+    with pytest.raises(FileNotFoundError, match="no refiner.pt and no orbax"):
+        refine.main(base + ["run_id=empty", f"refiner_checkpoint={tmp_path / 'empty'}"])
     for kw in (dict(refiner_width=16, scorer_width=8), dict(refiner_width=8, scorer_width=4)):
         other = RenderCompareRefiner.create(refine.mesh_paths_of(cad),
                                             config=RefinerConfig(render_size=(64, 64)),
