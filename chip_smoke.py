@@ -109,14 +109,16 @@ inputs, twice: with the bf16 AE (`serving_quant=off`) and with the int8 AE
    renderer at B = 8 against two batches of 4, the referee's choice with
    it, every pose moved; refine_batch without keep_best_init on both
    renderers, beside the batch with it: the referee's own cost ([referee]);
-   then the refine CLI
-   (`gigapose_tpu_torch.refine.main`) on the MultiHypothesis csv of phase
-   10's last run, REFINE_CLI_IMAGES images, min_score 0, with each
-   renderer: one row per instance, each equal to one of its coarse
-   hypotheses (the CLI's untrained head is the identity), rasterizer
-   launches per batch, and a
-   [refine_cli] line per run (per-image p50 / p90, images/s,
-   hypotheses/s).
+   the host loop in PIPELINE_CHUNKS chunks (one CUDA stream each) on both
+   mesh sets: ms p50, the device's busy share and the largest pose and
+   score gap from one chunk, held to CPU_BOUND ([refine_chunks]); then the
+   refine CLI (`gigapose_tpu_torch.refine.main`) on the MultiHypothesis
+   csv of phase 10's last run, REFINE_CLI_IMAGES images, min_score 0, with
+   each renderer and with the host loop in 2 chunks: one row per instance,
+   each equal to one of its coarse hypotheses (the CLI's untrained head is
+   the identity), the chunked run's rows those of one chunk, rasterizer
+   launches per batch, and a [refine_cli] line per run (per-image p50 /
+   p90, images/s, hypotheses/s).
 12. templates from CAD models and BOP scoring, beside phase 10's dataset:
    12.1 the 162 views of level 1 at 640 x 480 (the object at 0.4 m) of
    phase 11's two dataset meshes and of one 99,904-face mesh, through the
@@ -302,13 +304,14 @@ inputs, twice: with the bf16 AE (`serving_quant=off`) and with the int8 AE
    (expected_counts: 4 matching forwards on a bf16 store, 3 calls of the
    int8 AE: one onboarding chunk and two queries) ([selfcheck]);
 17. (right after phase 1) the image decoders on the host: each committed
-   fixture of tests/data/codecs (four 480 x 640 JPEGs, a 1280 x 960 LZW
-   TIFF, a 16-bit RGB and an Adam7 PNG) decoded by the reader's choice by
-   signature, its array's shape, dtype and sha256 against the manifest that
-   PIL wrote; ms per image (p50 of CODEC_REPS) of the q95 4:2:0 JPEG, the
-   TIFF and the JPEG's image as a PNG with adaptive rows; the JPEG's
-   images/s on one thread and on the TrainLoader's worker count; the host
-   CPU's model ([codecs]).
+   fixture of tests/data/codecs (five 480 x 640 JPEGs, one progressive, a
+   1280 x 960 LZW TIFF, a 16-bit RGB and an Adam7 PNG, and 35 small files
+   of the other JPEG and TIFF kinds) decoded by the reader's choice
+   by signature, its array's shape, dtype and sha256 against the manifest
+   that PIL wrote; ms per image (p50 of CODEC_REPS) of the q95 4:2:0 JPEG,
+   the TIFF, the JPEG's image as a PNG with adaptive rows and the
+   progressive JPEG; the JPEG's images/s on one thread and on the
+   TrainLoader's worker count; the host CPU's model ([codecs]).
 
 Every kernel count is set to 0 just before a path is driven and read just
 after; launches made to compare a kernel with its plain version are not
@@ -473,6 +476,10 @@ CODEC_DIR = osp.join(osp.dirname(osp.abspath(__file__)), "tests", "data", "codec
 CODEC_MANIFEST = (json.load(open(osp.join(CODEC_DIR, "manifest.json")))
                   if osp.exists(osp.join(CODEC_DIR, "manifest.json")) else {})
 CODEC_REPS, CODEC_THREAD_IMAGES = 20, 140
+CODEC_FIXTURES = 43  # the files of the manifest
+# 13.6's training images: the four 480 x 640 baseline JPEGs
+TRAIN_JPEGS = ("jpeg_gray_q90.jpg", "jpeg_q100_444_opt.jpg", "jpeg_q90_422_rst.jpg",
+               "jpeg_q95_420.jpg")
 
 
 def log(phase: str, **fields) -> None:
@@ -1503,6 +1510,8 @@ DEVICE_BOUND = dict(R=5e-4, t_mm=0.2, score=3e-4)
 # the refine CLI with its untrained (identity) head returns the coarse poses
 CLI_REFINE_TOL = dict(R=1e-4, t_rtol=1e-4)
 REFINE_CLI_IMAGES = 10  # the images of phase 11.5 and 18d
+# 11.4's pipelined host loop: the chunk counts timed (1 is the default)
+PIPELINE_CHUNKS = (1, 2, 4)
 # 11.3's adversarial set: faces per kind (one mesh of 20,000 faces), seen
 # at B = 8, 160 x 160 through a camera of focal length 572 px at about 0.5 m
 # (about 1,100 px a metre), one view across the camera plane
@@ -1846,7 +1855,8 @@ def phase_refine(dev, mesh_paths, large_paths, smi) -> dict:
     device renderer against the host one at the same batch, and the device
     renderer at B = 8 against the same hypotheses in two batches of 4 (the
     renders are the same, only the batch size differs); every pose moved;
-    the referee's choice."""
+    the referee's choice; the host loop in PIPELINE_CHUNKS chunks on both
+    mesh sets against one chunk."""
     B = REFINE_B
     ref = RenderCompareRefiner.create(mesh_paths, seed=SEED, config=RefinerConfig(), device=dev)
     perturb_refiner_(ref, SEED + 13)
@@ -1885,6 +1895,23 @@ def phase_refine(dev, mesh_paths, large_paths, smi) -> dict:
     for renderer in ("host", "device"):
         _, rec[f"{renderer}_large"] = time_refine(with_config(large, renderer=renderer), args,
                                                   f"{renderer}_large", smi)
+    # the pipelined host loop at PIPELINE_CHUNKS on both mesh sets, each
+    # chunking against one chunk: the same hypotheses, other batch sizes
+    for tag, r in (("", ref), ("_large", large)):
+        one = None
+        for n in PIPELINE_CHUNKS:
+            got, c = time_refine(with_config(r, renderer="host", pipeline_chunks=n), args,
+                                 f"host{tag}_chunks{n}", smi)
+            one = got if n == 1 else one
+            c["gap_to_one_chunk"] = gap = result_gap(got, one)
+            rec[f"host{tag}_chunks{n}"] = c
+            log("refine_chunks", mesh="large" if tag else "dataset", chunks=n, B=B,
+                batch_ms_p50=f"{c['batch_ms']:.4g}",
+                device_busy_share=f"{c['device_busy_share']:.4g}",
+                **{f"gap_{q}": f"{v:.4g}" for q, v in gap.items()}, card=repr(smi))
+            for q in ("R", "t_mm", "score"):
+                check(gap[q] <= CPU_BOUND[q],
+                      f"{n} chunks against one{tag}: {gap} > {CPU_BOUND}")
     large.meshes.close()
     # the same refiner on the CPU, on the first two hypotheses
     cpu = dataclasses.replace(ref, refiner_net=copy.deepcopy(ref.refiner_net).cpu(),
@@ -1939,23 +1966,27 @@ def phase_refine(dev, mesh_paths, large_paths, smi) -> dict:
 def phase_refine_cli(root: str, init_csv: str, smi) -> dict:
     """11.5: `python -m gigapose_tpu_torch.refine` through main() on phase
     10's dataset and the MultiHypothesis csv of one of its runs, min_score 0,
-    REFINE_CLI_IMAGES images, with the host and the device renderer: one
-    refined row per instance, each equal to one of its instance's coarse
-    hypotheses (the CLI's untrained head is the identity), rasterizer
-    launches RENDERS_PER_BATCH per batch of at most REFINE_B hypotheses."""
+    REFINE_CLI_IMAGES images, with the host and the device renderer, then
+    the host loop in 2 chunks (refine_pipeline_chunks=2): one refined row
+    per instance, each equal to one of its instance's coarse hypotheses
+    (the CLI's untrained head is the identity), rasterizer launches
+    RENDERS_PER_BATCH per batch of at most REFINE_B hypotheses; the chunked
+    run's rows those of one chunk within CPU_BOUND."""
     coarse = bop_io.load_bop_csv(init_csv, extra_column="instance_id")
     per_image = bop_io.group_by_image(coarse, image_key="im_id")
     keys = sorted(per_image)[:REFINE_CLI_IMAGES]
     want_rows = sum(len({int(r["instance_id"]) for r in per_image[k]}) for k in keys)
     batches = sum(-(-len(per_image[k]) // REFINE_B) for k in keys)
-    rec = {}
-    for renderer in ("host", "device"):
+    rec, host_rows = {}, None
+    for renderer, chunks in (("host", 1), ("device", 1), ("host", 2)):
         RZ.rasterize.launches = 0
-        save_dir = osp.join(root, "results", f"refine_{renderer}")
+        tag = renderer if chunks == 1 else f"{renderer}_chunks{chunks}"
+        save_dir = osp.join(root, "results", f"refine_{tag}")
         paths, timing = refine_cli.main([
             f"machine.root_dir={root}", "test_dataset_name=tudl", "model=large", "run_id=refine",
             f"init_loc_path={init_csv}", f"save_dir={save_dir}", "min_score=0",
-            f"max_images={REFINE_CLI_IMAGES}", f"refine_renderer={renderer}"])
+            f"max_images={REFINE_CLI_IMAGES}", f"refine_renderer={renderer}",
+            f"refine_pipeline_chunks={chunks}"])
         torch.cuda.synchronize()
         launches = RZ.rasterize.launches
         check(launches == (RENDERS_PER_BATCH * batches if renderer == "device" else 0),
@@ -1974,15 +2005,28 @@ def phase_refine_cli(root: str, init_csv: str, smi) -> dict:
         check(worst <= CLI_REFINE_TOL["R"], f"refine CLI {renderer}: a refined pose is "
               f"{worst} from every coarse hypothesis of its object")
         ms = np.asarray(timing["image_s"]) * 1e3
-        rec[renderer] = dict(images=timing["images"], hypotheses=timing["hypotheses"],
-                             rows=len(rows), image_ms_p50=float(np.percentile(ms, 50)),
-                             image_ms_p90=float(np.percentile(ms, 90)),
-                             images_per_s=timing["images"] / timing["run_s"],
-                             hypotheses_per_s=timing["hypotheses"] / timing["run_s"],
-                             run_s=timing["run_s"], batches=batches, raster_launches=launches,
-                             max_gap_to_coarse=worst)
-        log("refine_cli", renderer=renderer, **{k: (f"{v:.4g}" if isinstance(v, float) else v)
-                                                for k, v in rec[renderer].items()}, card=repr(smi))
+        if chunks == 1 and renderer == "host":
+            host_rows = rows
+        elif chunks > 1:  # the pipelined loop writes the rows of one chunk
+            check(len(rows) == len(host_rows), f"refine CLI {tag}: {len(rows)} rows, "
+                  f"{len(host_rows)} in one chunk")
+            for a, b in zip(rows, host_rows):
+                check((a["scene_id"], a["im_id"], a["obj_id"])
+                      == (b["scene_id"], b["im_id"], b["obj_id"])
+                      and float(np.abs(a["R"] - b["R"]).max()) <= CPU_BOUND["R"]
+                      and float(np.abs(a["t"] - b["t"]).max()) <= CPU_BOUND["t_mm"]
+                      and abs(a["score"] - b["score"]) <= CPU_BOUND["score"],
+                      f"refine CLI {tag}: a row differs from one chunk's")
+        rec[tag] = dict(images=timing["images"], hypotheses=timing["hypotheses"],
+                        rows=len(rows), image_ms_p50=float(np.percentile(ms, 50)),
+                        image_ms_p90=float(np.percentile(ms, 90)),
+                        images_per_s=timing["images"] / timing["run_s"],
+                        hypotheses_per_s=timing["hypotheses"] / timing["run_s"],
+                        run_s=timing["run_s"], batches=batches, raster_launches=launches,
+                        max_gap_to_coarse=worst)
+        log("refine_cli", renderer=renderer, chunks=chunks,
+            **{k: (f"{v:.4g}" if isinstance(v, float) else v) for k, v in rec[tag].items()},
+            card=repr(smi))
     return rec
 
 
@@ -2777,8 +2821,8 @@ def phase_train_jpg(e2e_root: str, png_run: dict, smi) -> dict:
 
     ds = osp.join(e2e_root, "datasets", "tudl")
     src, split = osp.join(ds, "train_pbr", "000001"), osp.join(ds, "train_pbr_jpg")
-    jpegs = [n for n in sorted(CODEC_MANIFEST) if n.endswith(".jpg")]
-    check(len(jpegs) == 4, f"JPEG fixtures: {jpegs}")
+    jpegs = list(TRAIN_JPEGS)
+    check(all(n in CODEC_MANIFEST for n in jpegs), f"JPEG fixtures: {jpegs}")
     t0 = time.perf_counter()
     dst = osp.join(split, "000001")
     shutil.copytree(src, dst, ignore=shutil.ignore_patterns("rgb"))
@@ -4530,19 +4574,22 @@ def p50_ms(fn, reps: int) -> float:
 
 def phase_codecs(smi) -> dict:
     """17. The image decoders on the host (csrc/codecs.cpp, dataloader/png.py),
-    on the committed fixtures of tests/data/codecs: each fixture through the
-    reader's choice by signature (scene._decode_image) against the
-    manifest that PIL wrote (shape, dtype, sha256 of the array: this host's
-    build of codecs.cpp gives PIL's bytes); the ms per image, p50 of
+    on the committed fixtures of tests/data/codecs (among them the
+    progressive, smoothed, lossless, arithmetic, CMYK / YCCK, 4:1:1 and
+    ratio 3 / 4 JPEGs and the planar, JPEG, zstd, LZMA, float, signed,
+    CCITT, 1-4-bit, 16-bit, alpha, old LZW and BigTIFF TIFFs): each fixture
+    through the reader's choice by signature (scene._decode_image) against
+    the manifest that PIL wrote (shape, dtype, sha256 of the array: this
+    host's build of codecs.cpp gives PIL's bytes); the ms per image, p50 of
     CODEC_REPS decodes, of the 480 x 640 q95 4:2:0 JPEG, of the 1280 x 960
-    LZW TIFF and of the JPEG's image as a PNG with adaptive rows (the
-    decoder that ran before); the JPEG's images/s on one thread and on the
-    TrainLoader's worker count (train.yaml's machine.num_workers, capped at
+    LZW TIFF, of the JPEG's image as a PNG with adaptive rows (the decoder
+    that ran before) and of the 480 x 640 progressive JPEG; the JPEG's
+    images/s on one thread and on the TrainLoader's worker count (train.yaml's machine.num_workers, capped at
     the cores - 1, as train.py caps it), whose ratio shows the GIL released
     during a decode; the host CPU's model ([codecs])."""
     t0 = time.perf_counter()
     data = {name: open(osp.join(CODEC_DIR, name), "rb").read() for name in sorted(CODEC_MANIFEST)}
-    check(len(data) == 7, f"the decoders' fixtures: {sorted(data)}")
+    check(len(data) == CODEC_FIXTURES, f"the decoders' fixtures: {sorted(data)}")
     for name, blob in data.items():
         want = CODEC_MANIFEST[name]
         got = SCENE._decode_image(blob, name)
@@ -4553,7 +4600,8 @@ def phase_codecs(smi) -> dict:
     png_bytes = encode_png(decode_jpeg(jpg), "adaptive")
     rec = {"fixtures": len(data), "cpu": cpu_model(), "cores": os.cpu_count()}
     for tag, blob in (("jpeg_480x640_q95_420", jpg), ("tiff_1280x960_lzw", tif),
-                      ("png_480x640_adaptive", png_bytes)):
+                      ("png_480x640_adaptive", png_bytes),
+                      ("jpeg_480x640_progressive", data["jpeg_progressive_480x640.jpg"])):
         rec[f"{tag}_ms_p50"] = p50_ms(lambda b=blob: SCENE._decode_image(b), CODEC_REPS)
     train_cfg = cli.load_cli_config([], ("device",), name="train")
     workers = max(1, min(int(train_cfg.machine.num_workers), (os.cpu_count() or 2) - 1))

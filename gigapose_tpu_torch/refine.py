@@ -27,8 +27,10 @@ It runs on cuda:0 unless `device=` names another device (the tests pass
 `test` config: n_refine_iterations (5), refine_renderer (GigaPose refiner
 only; host: the C++ raster on the host; device: the CUDA rasterizer, the
 loop on the card; the MegaPose refiner renders on the host and refuses
-device), refine_pipeline_chunks (1, as refine.py: the host loop refines the
-whole batch in one chunk), min_score (0.25, csv mode), init_loc_path,
+device), refine_pipeline_chunks (1, as refine.py; GigaPose refiner with the
+host renderer only: the host loop refines each batch in that many chunks,
+one CUDA stream each, one chunk's host renders overlapping another's device
+work; refiner/refiner.py), min_score (0.25, csv mode), init_loc_path,
 max_images, n_rendered_views (1), so3_grid_size (576). Without a
 checkpoint the nets are seeded random with the pose head the identity
 update (as JAX initialises the GigaPose head; its MegaPose head is drawn
@@ -43,8 +45,9 @@ checkpoint of the JAX package's train_refiner (its out_dir or
 <out_dir>/refiner, read without orbax); its widths (and the file's render
 size) must be those of the refiner built here (full width, or
 GIGAPOSE_TINY's), and with the MegaPose refiner it raises (that refiner
-reads megapose_*_ckpt). Refused, with the ROADMAP item to look up:
-refine_pipeline_chunks above 1, the pipelined host loop (A13c).
+reads megapose_*_ckpt). refine_pipeline_chunks above 1 with the device
+renderer or the MegaPose refiner raises ValueError (refine.py ignores it
+there): both refine a batch in one chunk.
 
 Several processes (parallel/multihost.py's launch contract, as the coarse
 CLI) split the images round-robin, one card each; process 0 writes the csv
@@ -96,6 +99,7 @@ def build_refiner(cfg: Config, mesh_paths: Dict[int, str], tiny: bool = False
         render_size=(64, 64) if tiny else (160, 160),
         n_sample_points=8 if tiny else 500,
         renderer=str(cfg.get("refine_renderer") or "host"),
+        pipeline_chunks=int(cfg.get("refine_pipeline_chunks") or 1),
     )
     return RenderCompareRefiner.create(mesh_paths, config=rcfg,
                                        refiner_width=8 if tiny else 64,
@@ -132,13 +136,16 @@ def main(argv=None) -> Tuple[List[str], Dict]:
     coarse_mode = str(cfg.get("coarse_mode") or "csv")
     if coarse_mode not in ("csv", "so3grid"):
         raise ValueError(f"coarse_mode must be csv or so3grid, not {coarse_mode!r}")
-    if int(cfg.get("refine_pipeline_chunks") or 1) > 1:
-        raise NotImplementedError("refine_pipeline_chunks > 1: the pipelined host loop is "
-                                  "ROADMAP A13c")
+    chunks = int(cfg.get("refine_pipeline_chunks") or 1)
+    if chunks < 1:
+        raise ValueError(f"refine_pipeline_chunks must be at least 1, not {chunks}")
     megapose = bool(cfg.get("megapose_refiner_ckpt") or cfg.get("megapose_coarse_ckpt")
                     or cfg.get("refiner_type") == "megapose" or coarse_mode == "so3grid")
     if megapose and str(cfg.get("refine_renderer") or "host") != "host":
         raise ValueError("refine_renderer: the MegaPose refiner renders on the host only")
+    if chunks > 1 and (megapose or str(cfg.get("refine_renderer") or "host") != "host"):
+        raise ValueError("refine_pipeline_chunks: only the GigaPose refiner's host loop "
+                         "refines a batch in chunks")
     if megapose and cfg.get("refiner_checkpoint"):
         raise ValueError("refiner_checkpoint holds the GigaPose refiner's weights; the MegaPose "
                          "refiner reads megapose_refiner_ckpt / megapose_coarse_ckpt")

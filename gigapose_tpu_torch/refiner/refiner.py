@@ -13,9 +13,16 @@ Two forms of the loop, one result per sample whatever the form:
 - host (`renderer="host"`): renders on the host with the C++ rasterizer
   (MeshStore's thread pool), one device -> host fetch per iteration (pose
   and crop intrinsics as one (B, 25) pack), uint8 renders uploaded and
-  converted on the device; the whole batch in one chunk (the JAX package's
-  pipelined form, chunks of the batch on 2 threads, is not ported: on an
-  H100 it took 3.8x the time of one chunk);
+  converted on the device. The batch is refined in
+  `config.pipeline_chunks` chunks (1 by default), split as the JAX
+  package's pipelined loop splits it. One thread queues all device work,
+  each chunk on its own CUDA stream; each pack is copied into pinned host
+  memory without blocking, and one render thread waits on that copy's
+  event, then renders. While it renders one chunk, the main thread queues
+  the next steps of the others, so that one chunk's host renders overlap
+  another's device work (on an H100 two chunks win only where the raster
+  outweighs the eager dispatch that each chunk repeats; PERF.md). On the
+  CPU the same schedule runs without streams;
 - device (`renderer="device"`): every render rasterized on the device
   (render/rasterize.py: the CUDA kernel on the card), no host round trip
   until the result.
@@ -31,8 +38,9 @@ import contextlib
 import dataclasses
 import os
 import time
+from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -62,6 +70,10 @@ class RefinerConfig:
     # where it scores strictly higher than the refined pose; reported scores
     # stay own-frame
     keep_best_init: bool = True
+    # host renderer only: refine the batch in this many chunks (bounds
+    # np.linspace(0, B, n + 1), n = min(chunks, B)), each on its own CUDA
+    # stream; the JAX package defaults to 2, the port to 1 (ROADMAP C)
+    pipeline_chunks: int = 1
 
 
 @contextlib.contextmanager
@@ -136,7 +148,8 @@ class MeshStore:
 
     def render_batch(self, labels: np.ndarray, TCO: np.ndarray, K: np.ndarray,
                      size: Tuple[int, int], out_dtype=np.float32,
-                     render_normals: bool = False) -> np.ndarray:
+                     render_normals: bool = False, out: Optional[np.ndarray] = None
+                     ) -> np.ndarray:
         """(B,) labels, (B, 4, 4) poses in metres, (B, 3, 3) K -> (B, C, H, W)
         renders: f32 in [0, 1], or with out_dtype=np.uint8 the raw bytes
         (a quarter of the upload; the device converts them exactly). C = 3,
@@ -144,11 +157,16 @@ class MeshStore:
         encoded as frac(nx, nz, -ny) on the object, 0 elsewhere (the
         reference's eye-space normal, wrapped as a repeating 3D texture in
         Panda3D's z-up frame). Each pose's translation is divided by the
-        mesh unit in the pose's own dtype."""
+        mesh unit in the pose's own dtype. `out`, when given, is the array
+        of that shape and dtype to fill (every entry is written)."""
         H, W = size
         if render_normals and out_dtype != np.float32:
             raise ValueError("normals are rendered as f32 only")
-        out = np.zeros((len(labels), 6 if render_normals else 3, H, W), out_dtype)
+        shape = (len(labels), 6 if render_normals else 3, H, W)
+        if out is None:
+            out = np.zeros(shape, out_dtype)
+        elif out.shape != shape or out.dtype != out_dtype:
+            raise ValueError(f"out is {out.dtype} {out.shape}, not {np.dtype(out_dtype)} {shape}")
 
         def render_one(i: int):
             label = int(labels[i])
@@ -199,10 +217,16 @@ class RenderCompareRefiner:
     # None: the device of refiner_net's parameters
     device: Optional[torch.device] = None
     # optional phase-time accumulator (seconds), host renderer only: set to a
-    # dict to collect {"fetch": device step + the pack's fetch, "render":
-    # host raster, "upload_update": render upload + net dispatch}
+    # dict to collect the main thread's time in three parts, which sum to
+    # the host loop's wall time: "fetch" waits for a chunk's pack (device
+    # work not yet done), "render" for the host raster, "upload_update"
+    # queues device work (the inputs, a render's upload, the net, the next
+    # crop and the pack's copy). With one chunk, fetch and render are the
+    # device step and the raster; with more, the parts of them left exposed
     timing: Optional[dict] = None
     _device_pack: Optional[DR.DeviceMeshes] = dataclasses.field(default=None, repr=False)
+    # the host loop's CUDA streams, one per chunk (made at first use)
+    _streams: List = dataclasses.field(default_factory=list, repr=False)
     # set by refiner/training.py:train_refiner: the refiner loss and the
     # scorer's BCE of every step
     loss_history: Optional[list] = dataclasses.field(default=None, repr=False)
@@ -251,65 +275,160 @@ class RenderCompareRefiner:
         args = (images, K, labels, TCO_init, n_it)
         with no_tf32(), torch.inference_mode():
             if self.config.renderer == "device":
+                if self.config.pipeline_chunks != 1:
+                    raise ValueError("pipeline_chunks: the device renderer refines the batch "
+                                     "in one chunk")
                 return self._refine_batch_device(*args)
             if self.config.renderer != "host":
                 raise ValueError(f"renderer must be host or device, not {self.config.renderer!r}")
             return self._refine_batch_host(*args)
 
     def _inputs(self, images, K, labels, TCO_init):
-        put = lambda a: torch.as_tensor(np.asarray(a, np.float32)).to(self.device)
         points = np.stack([self.meshes.points[int(l)] for l in labels])
-        return put(images), put(K), put(points), put(TCO_init)
+        return tuple(self._put(a) for a in (images, K, points, TCO_init))
 
-    def _lap(self, key: str, t0: float) -> float:
-        t1 = time.perf_counter()
-        if self.timing is not None:
-            self.timing[key] = self.timing.get(key, 0.0) + (t1 - t0)
-        return t1
+    def _put(self, a) -> torch.Tensor:
+        """Host array -> f32 on the device; to the card from pinned memory
+        without blocking, on the current stream."""
+        t = torch.from_numpy(np.ascontiguousarray(a, np.float32))
+        if self.device.type != "cuda":
+            return t.to(self.device)
+        return t.pin_memory().to(self.device, non_blocking=True)
 
-    def _render_host(self, labels, pack_h, size):
+    def _fetch(self, pack: torch.Tensor) -> tuple:
+        """Start the copy of a device tensor to the host -> (host tensor, the
+        CUDA event that marks the copy done, or None off the card)."""
+        if self.device.type != "cuda":
+            return pack.cpu(), None
+        host = torch.empty(pack.shape, dtype=pack.dtype, pin_memory=True)
+        host.copy_(pack, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return host, event
+
+    def _upload(self, renders) -> torch.Tensor:
+        renders = torch.as_tensor(renders)
+        return DR.as_f01(renders.to(self.device, non_blocking=renders.is_pinned()))
+
+    def _chunk_streams(self, n: int) -> list:
+        """n CUDA streams for the host loop's chunks (None off the card)."""
+        if self.device.type != "cuda":
+            return [None] * n
+        while len(self._streams) < n:
+            self._streams.append(torch.cuda.Stream(self.device))
+        return self._streams[:n]
+
+    def _serve(self, request) -> tuple:
+        """The render thread's work for one request (event, job): wait for
+        the event (the pack on the host), then render the job's poses into
+        pinned uint8 on the card's host (plain numpy off it) -> (renders or
+        None, when the pack was ready)."""
+        event, job = request
+        if event is not None:
+            event.synchronize()
+        ready = time.perf_counter()
+        if job is None:
+            return None, ready
+        labels, pack_h = job
+        shape = (len(labels), 3, *self.config.render_size)
+        out = torch.empty(shape, dtype=torch.uint8, pin_memory=self.device.type == "cuda")
+        self._render_host(labels, np.asarray(pack_h), self.config.render_size, out=out.numpy())
+        return out, ready
+
+    def _render_host(self, labels, pack_h, size, out=None) -> np.ndarray:
+        """uint8 renders of (B, 25) packs (pose, crop intrinsics) on the host."""
         B = len(labels)
         return self.meshes.render_batch(labels, pack_h[:, :16].reshape(B, 4, 4),
                                         pack_h[:, 16:].reshape(B, 3, 3), size,
-                                        out_dtype=np.uint8)
+                                        out_dtype=np.uint8, out=out)
 
-    def _upload(self, renders: np.ndarray) -> torch.Tensor:
-        return DR.as_f01(torch.from_numpy(renders).to(self.device))
-
-    def _refine_batch_host(self, images, K, labels, TCO_init, n_it):
+    def _host_chunk(self, images, K, labels, TCO_init, n_it):
+        """One chunk of the host loop, as a generator: it queues device
+        work, yields a request for the render thread (see _serve) and is
+        sent the renders back; it returns (poses, scores), numpy."""
         imgs, Kd, pts, TCO0 = self._inputs(images, K, labels, TCO_init)
-        size = self.config.render_size
         TCO = TCO0
         for _ in range(n_it):
-            t0 = time.perf_counter()
             TCO, tCR, K_crop, crops, pack = self._crop_step(imgs, Kd, TCO, pts)
-            pack_h = pack.cpu().numpy()  # the one fetch of the iteration
-            t0 = self._lap("fetch", t0)
-            renders = self._render_host(labels, pack_h, size)
-            t0 = self._lap("render", t0)
+            pack_h, event = self._fetch(pack)  # the one fetch of the iteration
+            renders = yield event, (labels, pack_h)
             TCO = self._update_step(crops, self._upload(renders), TCO, K_crop, tCR)
-            self._lap("upload_update", t0)
         # scoring at the final pose (ref: forward_scoring_model)
         _, _, _, crops, pack = self._crop_step(imgs, Kd, TCO, pts)
-        pack_h = pack.cpu().numpy()
-        scores = self._score(crops, self._upload(self._render_host(labels, pack_h, size)))
-        scores = scores.cpu().numpy()
-        B = len(labels)
-        TCO_out = pack_h[:, :16].reshape(B, 4, 4)
+        pack_h, event = self._fetch(pack)
+        scores = [self._score(crops, self._upload((yield event, (labels, pack_h))))]
         if self.config.keep_best_init:
             # referee init against refined in the init pose's crop frame:
             # both rendered with the init crop's intrinsics against the
             # init-frame observed crop
             _, _, _, crops0, pack0 = self._crop_step(imgs, Kd, TCO0, pts)
-            pack0_h = pack0.cpu().numpy()
-            s0 = self._score(crops0, self._upload(self._render_host(labels, pack0_h, size)))
-            shared = np.concatenate([TCO_out.reshape(B, 16), pack0_h[:, 16:]], axis=1)
-            s_ref = self._score(crops0, self._upload(self._render_host(labels, shared, size)))
-            s0, s_ref = s0.cpu().numpy(), s_ref.cpu().numpy()
-            keep = s0 > s_ref
-            TCO_out = np.where(keep[:, None, None], pack0_h[:, :16].reshape(B, 4, 4), TCO_out)
-            scores = np.where(keep, s0, scores)  # s0 is the init's own-frame score
-        return TCO_out, scores
+            pack0_h, event = self._fetch(pack0)
+            scores.append(self._score(crops0, self._upload((yield event, (labels, pack0_h)))))
+            shared = torch.cat([pack_h[:, :16], pack0_h[:, 16:]], dim=1)
+            scores.append(self._score(crops0, self._upload((yield None, (labels, shared)))))
+        scores_h, event = self._fetch(torch.stack(scores))
+        yield event, None
+        B = len(labels)
+        TCO_out = pack_h[:, :16].numpy().reshape(B, 4, 4)
+        scores = scores_h.numpy()
+        if not self.config.keep_best_init:
+            return TCO_out, scores[0]
+        s, s0, s_ref = scores
+        keep = s0 > s_ref
+        TCO_out = np.where(keep[:, None, None], pack0_h[:, :16].numpy().reshape(B, 4, 4), TCO_out)
+        return TCO_out, np.where(keep, s0, s)  # s0 is the init's own-frame score
+
+    def _refine_batch_host(self, images, K, labels, TCO_init, n_it):
+        """The host loop's schedule: the chunks' generators advanced in
+        turn on the main thread, each inside its own stream; the render
+        thread serves their requests in that order, and the next request
+        goes to it before the main thread queues the steps that follow the
+        one just served."""
+        B = len(labels)
+        n = max(1, min(int(self.config.pipeline_chunks), B))
+        bounds = np.linspace(0, B, n + 1).astype(int)
+        streams = self._chunk_streams(n)
+        in_stream = lambda s: torch.cuda.stream(s) if s is not None else contextlib.nullcontext()
+        if streams[0] is not None:  # work queued before the call comes first
+            for s in streams:
+                s.wait_stream(torch.cuda.current_stream(self.device))
+        t0 = time.perf_counter()
+        queue, results = deque(), [None] * n
+        for i, s in enumerate(streams):
+            part = slice(bounds[i], bounds[i + 1])
+            gen = self._host_chunk(images[part], K[part], labels[part], TCO_init[part], n_it)
+            with in_stream(s):
+                queue.append((i, gen, s, next(gen)))
+        with ThreadPoolExecutor(1) as worker:
+            pending = worker.submit(self._serve, queue[0][3])
+            while queue:
+                i, gen, s, _ = queue.popleft()
+                t0 = self._lap("upload_update", t0)
+                renders, ready = pending.result()
+                t1 = time.perf_counter()
+                self._add("fetch", max(0.0, min(ready, t1) - t0))
+                t0 = self._lap("render", max(t0, min(ready, t1)))
+                pending = worker.submit(self._serve, queue[0][3]) if queue else None
+                try:
+                    with in_stream(s):
+                        request = gen.send(renders)
+                except StopIteration as stop:
+                    results[i] = stop.value
+                    continue
+                queue.append((i, gen, s, request))
+                if pending is None:
+                    pending = worker.submit(self._serve, request)
+        self._lap("upload_update", t0)
+        return tuple(np.concatenate([r[k] for r in results]) for k in range(2))
+
+    def _add(self, key: str, seconds: float) -> None:
+        if self.timing is not None:
+            self.timing[key] = self.timing.get(key, 0.0) + seconds
+
+    def _lap(self, key: str, t0: float) -> float:
+        t1 = time.perf_counter()
+        self._add(key, t1 - t0)
+        return t1
 
     # ----------------------------------------------------------- device path
 

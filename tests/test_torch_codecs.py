@@ -1,15 +1,23 @@
-"""The port's image decoders == PIL 12 on libjpeg-turbo (CPU, exact).
+"""The port's image decoders == PIL 12 on libjpeg-turbo 3.1 and libtiff 4.7
+(CPU, exact).
 
 - decode_jpeg (csrc/codecs.cpp through dataloader/jpeg.py): byte-equal to
   np.asarray(Image.open(...)) on files that PIL and cv2 write, at sizes
   from 1 x 1 to 480 x 640 (edges that are no multiple of the MCU), every
   quality class, every chroma subsampling PIL writes and gray, optimized
   Huffman tables, restart intervals (PIL's and cv2's), 4:4:0, Adobe RGB and
-  16-bit quantization tables (SOF1); the files it refuses raise ValueError
-  naming ROADMAP A1b;
+  16-bit quantization tables (SOF1); progressive files whole and cut after
+  each scan (block smoothing); CMYK, YCCK and MJPEG frames without DHT; and
+  the files of make_fixtures.encode_jpeg: sampling ratios 1-4, lossless
+  predictors, arithmetic coding sequential and progressive. The files PIL
+  refuses raise ValueError naming ROADMAP A1b in the port too;
 - decode_tiff: PIL's files in every compression x predictor x sample
-  layout, and files built here (big-endian, tiles, LZW and PackBits by
-  hand); the layouts it refuses;
+  layout, and files built here (make_fixtures.build_tiff: big-endian,
+  tiles, planar, LZW old and new, PackBits, LZMA, CCITT, JPEG with
+  JPEGTables, float predictor, signed, 1-32 bits, WhiteIsZero, CMYK,
+  alpha, FillOrder 2, BigTIFF) against PIL, palette files against its RGB,
+  big-endian signed and float samples against PIL's array swapped back
+  (ROADMAP C); the layouts PIL refuses, refused;
 - decode_png's new modes (1-, 2- and 4-bit gray, 16-bit RGB, RGBA and
   gray + alpha) and Adam7 interlacing of every mode, on files built here
   (PIL writes neither);
@@ -20,13 +28,12 @@
   JAX script's.
 """
 
-import hashlib
 import io
 import json
 import os
 import os.path as osp
+import re
 import struct
-import zlib
 
 import cv2
 import numpy as np
@@ -40,7 +47,9 @@ from gigapose_tpu_torch.dataloader.jpeg import decode_jpeg
 from gigapose_tpu_torch.dataloader.tiff import decode_tiff
 from gigapose_tpu_torch.scripts import convert_to_shards
 from tests import synthetic_bop
-from tests.data.codecs.make_fixtures import build_png
+from tests.data.codecs.make_fixtures import (array_sha256, build_png, build_tiff, encode_jpeg,
+                                             fax_encode, jpeg_segments, keep_scans,
+                                             split_jpeg_tables)
 from tests.data.codecs.make_fixtures import scene as content
 from tests.torch_image_formats import reencode_rgb
 
@@ -70,7 +79,7 @@ def test_fixtures_match_their_manifest_in_pil_and_in_the_port(name):
     assert len(data) == entry["bytes"]
     for a in (_pil(data), scene._decode_image(data, name)):
         assert list(a.shape) == entry["shape"] and a.dtype.str == entry["dtype"], name
-        assert hashlib.sha256(a.tobytes()).hexdigest() == entry["sha256"], name
+        assert array_sha256(a) == entry["sha256"], name
     assert sum(e["bytes"] for e in MANIFEST.values()) < 3 * 2 ** 20
 
 
@@ -139,6 +148,7 @@ def test_decode_jpeg_equals_pil(h, w, gray, noisy, writer, options):
 
 def _refusal(kind: str) -> bytes:
     base = _encode(17, 33, False, 1, "pil", dict(quality=90))
+    sof = base.index(b"\xff\xc0")
     if kind == "progressive":
         buf = io.BytesIO()
         Image.fromarray(content(3, 17, 33, 3, 20.0)).save(buf, "JPEG", progressive=True)
@@ -147,11 +157,23 @@ def _refusal(kind: str) -> bytes:
         buf = io.BytesIO()
         Image.fromarray(content(3, 17, 33, 3, 20.0)).convert("CMYK").save(buf, "JPEG")
         return buf.getvalue()
-    if kind == "sof9":  # the frame header of an arithmetic-coded file
+    if kind == "sof9":  # a Huffman-coded file relabelled arithmetic: decoded as such
         return base.replace(b"\xff\xc0", b"\xff\xc9", 1)
     if kind == "12-bit":
-        i = base.index(b"\xff\xc0")
-        return base[:i + 4] + bytes([12]) + base[i + 5:]
+        return base[:sof + 4] + bytes([12]) + base[sof + 5:]
+    if kind == "dnl":  # height 0: defined by a DNL marker
+        return base[:sof + 5] + b"\x00\x00" + base[sof + 7:]
+    if kind in ("hierarchical", "sof7"):
+        return base.replace(b"\xff\xc0", b"\xff\xc5" if kind == "hierarchical" else b"\xff\xc7", 1)
+    if kind == "lossless-arithmetic":
+        return encode_jpeg(content(3, 17, 33, 1, 5.0), mode="lossless").replace(
+            b"\xff\xc3", b"\xff\xcb", 1)
+    if kind == "lossless-ycbcr":  # lossless mode converts no colours
+        return encode_jpeg(content(3, 17, 33, 3, 5.0), mode="lossless")
+    if kind == "2-component":
+        return encode_jpeg(content(3, 17, 33, 3, 5.0)[..., :2])
+    if kind == "fractional-sampling":
+        return encode_jpeg(content(3, 17, 33, 3, 5.0), ((3, 1), (2, 1), (2, 1)))
     if kind == "sampling-4x1":
         return _encode(17, 33, False, 1, "cv2", [cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
                                                  cv2.IMWRITE_JPEG_SAMPLING_FACTOR_411])
@@ -164,17 +186,110 @@ def _refusal(kind: str) -> bytes:
 
 
 @pytest.mark.parametrize("kind,match", [
-    ("progressive", "progressive"), ("cmyk", "CMYK"), ("sof9", "arithmetic"),
-    ("12-bit", "12-bit"), ("sampling-4x1", "above 2"), ("truncated-scan", "truncated"),
-    ("truncated-no-eoi", "truncated"), ("truncated-header", "truncated")])
+    ("progressive", None), ("cmyk", None), ("sof9", None), ("12-bit", "12-bit"),
+    ("sampling-4x1", None), ("truncated-scan", "truncated"), ("truncated-no-eoi", "truncated"),
+    ("truncated-header", "truncated"), ("dnl", "DNL"), ("hierarchical", "hierarchical"),
+    ("sof7", "hierarchical"), ("lossless-arithmetic", "SOF11"),
+    ("lossless-ycbcr", "lossless YCbCr"), ("2-component", "2-component"),
+    ("fractional-sampling", "fractional")])
 def test_decode_jpeg_refusals(kind, match):
+    """The kinds a baseline decoder refuses: where PIL decodes the file (match
+    None) the port gives its bytes; where PIL refuses it, so does the port,
+    naming ROADMAP A1b."""
     data = _refusal(kind)
-    if kind.startswith("truncated"):
-        with pytest.raises(OSError):  # PIL refuses these too
-            _pil(data)
+    if match is None:
+        _assert_same(decode_jpeg(data), _pil(data))
+        return
+    with pytest.raises((OSError, SyntaxError)):  # PIL refuses these too
+        _pil(data)
     with pytest.raises(ValueError, match=match) as err:
         decode_jpeg(data)
     assert "ROADMAP A1b" in str(err.value)
+
+
+def _progressive_cases():
+    """(id, h, w, subsampling, scans kept or None): PIL's progressive files at
+    sizes whose MCUs pad the image or not, whole and cut after each scan
+    (block smoothing of the coefficients not yet exact; DC only with one)."""
+    cases = []
+    for h, w in ((7, 9), (17, 33), (61, 93), (64, 96)):
+        for ss in (0, 1, 2, "gray"):
+            cases.append((f"{h}x{w}-{ss}", h, w, ss, None))
+    for h, w, ss, n in ((61, 93, 2, 10), (17, 33, 2, 10), (120, 200, 2, 10), (61, 93, 0, 10),
+                        (61, 93, "gray", 6), (64, 96, 1, 10)):
+        for keep in range(1, n):
+            cases.append((f"{h}x{w}-{ss}-scans{keep}", h, w, ss, keep))
+    return cases
+
+
+@pytest.mark.parametrize("h,w,ss,keep", [c[1:] for c in _progressive_cases()],
+                         ids=[c[0] for c in _progressive_cases()])
+def test_decode_progressive_jpeg_equals_pil(h, w, ss, keep):
+    img = content(h * w + 1, h, w, 1 if ss == "gray" else 3, 12.0)
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, "JPEG", quality=85, progressive=True,
+                              **({} if ss == "gray" else dict(subsampling=ss)))
+    data = buf.getvalue() if keep is None else keep_scans(buf.getvalue(), keep)
+    _assert_same(decode_jpeg(data), _pil(data))
+
+
+def _encoder_cases():
+    """(id, sampling, options) of the test-only encoder: sampling ratios 1-4
+    (fancy and box upsampling), standard Huffman tables (no DHT), lossless
+    predictors 1-7 with point transforms, arithmetic coding sequential and
+    progressive, with restarts and DAC conditioning."""
+    S = {"444": ((1, 1),) * 3, "420": ((2, 2), (1, 1), (1, 1)), "h3v1": ((3, 1), (1, 1), (1, 1)),
+         "h4v2": ((4, 2), (1, 1), (1, 1)), "h2v1-mixed": ((2, 1), (1, 1), (2, 1)),
+         "h1v2-chroma": ((2, 2), (2, 1), (2, 1)), "h4v1-h2v1": ((4, 1), (2, 1), (2, 1)),
+         "h1v4": ((1, 4), (1, 1), (1, 2)), "gray": ((1, 1),)}
+    cases = [(f"huffman-{k}", v, {}) for k, v in S.items()]
+    cases += [(f"no-dht-{k}", S[k], dict(dht=False)) for k in ("420", "h4v2", "gray")]
+    cases += [(f"lossless-gray-p{p}-pt{p % 3}", S["gray"],
+               dict(mode="lossless", predictor=p, point_transform=p % 3)) for p in range(1, 8)]
+    cases += [(f"lossless-rgb-{k}", S[k], dict(mode="lossless", predictor=4, ids=[82, 71, 66],
+                                                 jfif=False)) for k in ("444", "420", "h3v1")]
+    for k in ("444", "420", "h3v1", "gray"):
+        cases.append((f"arith-{k}", S[k], dict(arith=True)))
+        cases.append((f"arith-{k}-rst2-dac", S[k], dict(arith=True, restart=2, dac=(1, 4, 3))))
+        cases.append((f"arith-progressive-{k}", S[k], dict(mode="progressive", arith=True)))
+        cases.append((f"arith-progressive-{k}-rst3", S[k],
+                      dict(mode="progressive", arith=True, restart=3, dac=(0, 2, 8))))
+    return cases
+
+
+@pytest.mark.parametrize("size", [(7, 9), (40, 56)], ids=["7x9", "40x56"])
+@pytest.mark.parametrize("sampling,options", [c[1:] for c in _encoder_cases()],
+                         ids=[c[0] for c in _encoder_cases()])
+def test_decode_encoded_jpeg_equals_pil(sampling, options, size):
+    h, w = size
+    img = content(h + w, h, w, len(sampling), 10.0)
+    data = encode_jpeg(img, sampling, **options)
+    want = _pil(data)
+    if options.get("mode") == "lossless" and set(sampling) == {(1, 1)}:  # the samples come back
+        pt = options.get("point_transform", 0)
+        np.testing.assert_array_equal(want, (img >> pt) << pt)
+    _assert_same(decode_jpeg(data), want)
+
+
+@pytest.mark.parametrize("kind", ["no-dht", "ycck", "cmyk-without-adobe"])
+def test_decode_jpeg_markers_equal_pil(kind):
+    """MJPEG frames (no DHT: the standard tables), Adobe's YCCK (libjpeg's
+    YCCK -> CMYK) and CMYK without an Adobe marker (PIL inverts CMYK
+    whatever the markers say)."""
+    img = content(9, 61, 93, 3, 8.0)
+    buf = io.BytesIO()
+    if kind == "no-dht":
+        Image.fromarray(img).save(buf, "JPEG", quality=90, subsampling=2)
+        data = b"\xff\xd8" + b"".join(seg for m, seg in jpeg_segments(buf.getvalue()) if m != 0xC4)
+    else:
+        Image.fromarray(img).convert("CMYK").save(buf, "JPEG", quality=90)
+        data = buf.getvalue()
+        at = data.index(b"Adobe")
+        if kind == "ycck":
+            data = data[:at + 11] + bytes([2]) + data[at + 12:]
+        else:
+            data = b"\xff\xd8" + b"".join(seg for m, seg in jpeg_segments(data) if m != 0xEE)
+    _assert_same(decode_jpeg(data), _pil(data))
 
 
 def test_decode_jpeg_takes_zero_bits_after_an_early_marker_as_pil():
@@ -209,109 +324,14 @@ def test_decode_tiff_equals_pil(mode, compression, predictor):
     _assert_same(decode_tiff(data), _pil(data))
 
 
-def _lzw_encode(data: bytes) -> bytes:
-    """TIFF LZW: a clear code first, MSB-first codes whose width grows one
-    code before the decoder's table needs it, a clear when the table is
-    full, EOI last."""
-    codes, table, w = [256], {bytes([i]): i for i in range(256)}, b""
-    for c in data:
-        wc = w + bytes([c])
-        if wc in table:
-            w = wc
-            continue
-        codes.append(table[w])
-        table[wc] = 258 + len(table) - 256
-        w = bytes([c])
-        if len(table) - 256 + 258 >= 4093:
-            codes.append(256)
-            table = {bytes([i]): i for i in range(256)}
-    codes += [table[w]] if w else []
-    codes.append(257)
-    bits, since_clear = [], 0
-    for code in codes:
-        free = 258 + max(0, since_clear - 1)  # the decoder's next entry
-        width = 9 if free <= 510 else 10 if free <= 1022 else 11 if free <= 2046 else 12
-        bits.append(format(code, f"0{width}b"))
-        since_clear = 0 if code == 256 else since_clear + 1
-    s = "".join(bits)
-    s += "0" * (-len(s) % 8)
-    return int(s, 2).to_bytes(len(s) // 8, "big")
-
-
-def _packbits_encode(data: bytes) -> bytes:
-    out, i = bytearray(), 0
-    while i < len(data):
-        run = 1
-        while i + run < len(data) and run < 128 and data[i + run] == data[i]:
-            run += 1
-        if run >= 3:
-            out += bytes([(257 - run) & 255, data[i]])
-            i += run
-            continue
-        j = i
-        while j < len(data) and j - i < 128 and not (
-                j + 2 < len(data) and data[j] == data[j + 1] == data[j + 2]):
-            j += 1
-        out += bytes([j - i - 1]) + data[i:j]
-        i = j
-    return bytes(out)
-
-
 def _build_tiff(img: np.ndarray, order: str, compression: int, predictor: int = 1,
                 tile=None, rows_per_strip=16) -> bytes:
     """A baseline TIFF of a gray, RGB or RGBA uint8 / uint16 image, in strips
-    or in tiles of `tile` = (width, height), written here."""
-    h, w = img.shape[:2]
-    spp = 1 if img.ndim == 2 else img.shape[2]
-    px = img.reshape(h, w, spp)
-    dtype = np.dtype(order + ("u2" if img.dtype == np.uint16 else "u1"))
-    tw, th = tile or (w, rows_per_strip)
-    chunks = []
-    for y in range(0, h, th):
-        for x in range(0, w, tw):
-            block = np.zeros((th, tw, spp), img.dtype) if tile else px[y:y + th].copy()
-            if tile:
-                part = px[y:y + th, x:x + tw]
-                block[:part.shape[0], :part.shape[1]] = part
-            if predictor == 2:
-                block = block.astype(np.int64)
-                block[:, 1:] -= block[:, :-1].copy()
-                block = (block % (2 ** (8 * dtype.itemsize))).astype(img.dtype)
-            raw = block.astype(dtype).tobytes()
-            chunks.append({1: raw, 5: _lzw_encode(raw), 8: zlib.compress(raw),
-                           32773: _packbits_encode(raw)}[compression])
-            if not tile:
-                break
-    entries = {256: (3, [w]), 257: (3, [h]), 258: (3, [8 * dtype.itemsize] * spp),
-               259: (3, [compression]), 262: (3, [1 if spp == 1 else 2]),
-               277: (3, [spp]), 284: (3, [1]), 317: (3, [predictor])}
-    if spp == 4:
-        entries[338] = (3, [2])
-    body = bytearray(b"II*\x00" if order == "<" else b"MM\x00*") + b"\x00" * 4
-    offsets = []
-    for c in chunks:
-        offsets.append(len(body))
-        body += c + b"\x00" * (len(c) % 2)
-    counts = [len(c) for c in chunks]
-    if tile:
-        entries.update({322: (3, [tw]), 323: (3, [th]), 324: (4, offsets), 325: (4, counts)})
-    else:
-        entries.update({273: (4, offsets), 278: (3, [th]), 279: (4, counts)})
-    extra = bytearray()
-    ifd_at = len(body)
-    n = len(entries)
-    data_at = ifd_at + 2 + 12 * n + 4
-    ifd = struct.pack(order + "H", n)
-    for tag in sorted(entries):
-        ftype, values = entries[tag]
-        packed = struct.pack(order + ("H" if ftype == 3 else "I") * len(values), *values)
-        if len(packed) <= 4:
-            ifd += struct.pack(order + "HHI", tag, ftype, len(values)) + packed.ljust(4, b"\x00")
-        else:
-            ifd += struct.pack(order + "HHII", tag, ftype, len(values), data_at + len(extra))
-            extra += packed
-    body[4:8] = struct.pack(order + "I", ifd_at)
-    return bytes(body + ifd + b"\x00" * 4 + extra)
+    or in tiles of `tile` = (width, height), written here
+    (make_fixtures.build_tiff)."""
+    rgba = img.ndim == 3 and img.shape[2] == 4
+    return build_tiff(img, order, compression, predictor, tile=tile,
+                      rows_per_strip=rows_per_strip, extra=(2,) if rgba else ())
 
 
 @pytest.mark.parametrize("order,compression,predictor,tile,mode", [
@@ -332,26 +352,156 @@ def test_decode_tiff_hand_built_equals_pil(order, compression, predictor, tile, 
     np.testing.assert_array_equal(got, want)
 
 
-def test_decode_tiff_refusals():
-    img = _tiff_image("L", 3)
-    for tag, value, match in ((284, 2, "PlanarConfiguration"), (262, 0, "Photometric"),
-                              (259, 7, "Compression"), (317, 3, "Predictor"),
-                              (339, 3, "SampleFormat")):
-        data = bytearray(_build_tiff(img, "<", 1))
-        ifd = struct.unpack("<I", data[4:8])[0]
-        n = struct.unpack("<H", data[ifd:ifd + 2])[0]
-        entries = [data[ifd + 2 + 12 * i:ifd + 14 + 12 * i] for i in range(n)]
-        entries = [e for e in entries if struct.unpack("<H", e[:2])[0] != tag]
-        entries.append(struct.pack("<HHIHH", tag, 3, 1, value, 0))
-        entries.sort(key=lambda e: struct.unpack("<H", e[:2])[0])
-        data[ifd:ifd + 2 + 12 * n] = struct.pack("<H", len(entries)) + b"".join(entries)
-        with pytest.raises(ValueError, match=match) as err:
-            decode_tiff(bytes(data))
-        assert "ROADMAP A1b" in str(err.value)
-    with pytest.raises(ValueError, match="ROADMAP A1b"):  # 8-bit CMYK
+def _retag(data: bytes, tag: int, value: int) -> bytes:
+    """A little-endian classic TIFF with one SHORT entry set to `value`."""
+    data = bytearray(data)
+    ifd = struct.unpack("<I", data[4:8])[0]
+    n = struct.unpack("<H", data[ifd:ifd + 2])[0]
+    entries = [data[ifd + 2 + 12 * i:ifd + 14 + 12 * i] for i in range(n)]
+    entries = [e for e in entries if struct.unpack("<H", e[:2])[0] != tag]
+    entries.append(struct.pack("<HHIHH", tag, 3, 1, value, 0))
+    entries.sort(key=lambda e: struct.unpack("<H", e[:2])[0])
+    data[ifd:ifd + 2 + 12 * n] = struct.pack("<H", len(entries)) + b"".join(entries)
+    return bytes(data)
+
+
+@pytest.mark.parametrize("tag,value,match", [
+    (284, 2, None), (262, 0, None), (259, 7, "JPEG"), (317, 3, None),
+    (339, 3, "SampleFormat"), ("cmyk", None, None), ("lzw-predictor3", None, "Predictor")])
+def test_decode_tiff_refusals(tag, value, match):
+    """Tags a baseline reader refuses, on an 8-bit gray file: where PIL
+    decodes the file (match None: planar 2, WhiteIsZero, the float predictor
+    on uncompressed data, which libtiff ignores there, an 8-bit CMYK file)
+    the port gives its array; where PIL refuses it (JPEG compression of raw
+    bytes, the float format or, under LZW, the float predictor on 8-bit
+    samples), so does the port."""
+    if tag == "cmyk":
         buf = io.BytesIO()
         Image.fromarray(_tiff_image("RGBA", 3)).convert("CMYK").save(buf, "TIFF")
-        decode_tiff(buf.getvalue())
+        data = buf.getvalue()
+    elif tag == "lzw-predictor3":
+        data = build_tiff(_tiff_image("L", 3), "<", 5, predictor=3)
+    else:
+        data = _retag(_build_tiff(_tiff_image("L", 3), "<", 1), tag, value)
+    if match is None:
+        _assert_same(decode_tiff(data), _pil(data))
+        return
+    with pytest.raises((OSError, SyntaxError)):  # PIL refuses these too
+        _pil(data)
+    with pytest.raises(ValueError, match=match):
+        decode_tiff(data)
+
+
+def _tiff_cases():
+    """(id, builder): the layouts and codecs beyond baseline TIFF, each
+    file against PIL's np.asarray (palette files against its RGB)."""
+    r = np.random.default_rng(5)
+    rgba = content(6, 37, 53, 4, 6.0)
+    gray = rgba[..., 0]
+    floats = (r.normal(size=(37, 53)) * 300).astype(np.float32)
+    wide = r.integers(0, 65536, (37, 53, 4)).astype(np.uint16)
+    bw = content(7, 37, 53, 1, 30.0) < 120
+    cases = []
+
+    def add(name, *args, **kw):  # build_tiff(*args, **kw), built in the test
+        cases.append((name, lambda: build_tiff(*args, **kw)))
+
+    def pil(name, img, **kw):  # PIL's own file
+        def build():
+            buf = io.BytesIO()
+            (img if isinstance(img, Image.Image) else Image.fromarray(img)).save(buf, "TIFF", **kw)
+            return buf.getvalue()
+        cases.append((name, build))
+
+    for order in "<>":
+        o = "II" if order == "<" else "MM"
+        for c in (1, 5, 8, 32773, 34925):
+            p = f"{o}-{c}"
+            add(f"{p}-planar2-rgb", rgba[..., :3], order, c, planar=2)
+            add(f"{p}-planar2-rgba-tiles", rgba, order, c, planar=2, extra=(2,), tile=(16, 16),
+                predictor=2 if c in (5, 8) else 1)
+            add(f"{p}-whiteiszero", gray, order, c, photometric=0)
+            add(f"{p}-fillorder2", gray, order, c, fill_order=2)
+            add(f"{p}-associated-alpha", rgba, order, c, extra=(1,))
+            add(f"{p}-rgbx", rgba, order, c, extra=(0,))
+            add(f"{p}-rgb16", wide[..., :3], order, c)
+            add(f"{p}-rgba16-associated", wide, order, c, extra=(1,))
+            add(f"{p}-cmyk16", wide, order, c, photometric=5)
+            add(f"{p}-cmyk", rgba, order, c, photometric=5)
+            add(f"{p}-int8", gray.astype(np.int8), order, c, sample_format=2)
+            add(f"{p}-gray-alpha", rgba[..., :2], order, c, extra=(2,))
+            add(f"{p}-lab", rgba[..., :3], order, c, photometric=8)
+            for bits in (1, 2, 4):
+                v = (gray >> (8 - bits)).astype(np.uint8)
+                pal = r.integers(0, 65536, 3 * 2 ** bits).tolist()
+                add(f"{p}-{bits}bit-whiteiszero", v, order, c, bits=bits, photometric=0)
+                add(f"{p}-{bits}bit-fillorder2", v, order, c, bits=bits, fill_order=2)
+                add(f"{p}-{bits}bit-palette", v, order, c, bits=bits, photometric=3,
+                    tags={320: (3, pal)})
+        for c, preds in ((1, (1,)), (5, (1, 2, 3)), (8, (1, 2, 3)), (34925, (2, 3))):
+            for p in preds:
+                add(f"{o}-{c}-float-predictor{p}", floats, order, c, predictor=p, sample_format=3)
+            for dt in (np.int16, np.int32):
+                for p in preds[:2] if c != 1 else (1,):
+                    add(f"{o}-{c}-{np.dtype(dt).name}-predictor{p}", (floats * 50).astype(dt),
+                        order, c, predictor=p, sample_format=2)
+        add(f"{o}-old-style-lzw", rgba[..., :3], order, 5, old_lzw=True)
+        add(f"{o}-uint32", r.integers(0, 2 ** 32, (9, 7)).astype(np.uint32), order, 5)
+    for c in (1, 8, 34925):
+        add(f"bigtiff-{c}-tiles", rgba[..., :3], "<", c, big=True, tile=(16, 32))
+        add(f"bigtiff-{c}-float", floats, "<", c, big=True, sample_format=3)
+    add("bigtiff-MM", gray, ">", 1, big=True)
+    add("float64", floats.astype(np.float64), "<", 8, sample_format=3)
+    for mode, c in (("rle", 2), ("g3", 3), ("g3_2d", 3), ("g4", 4)):
+        for ph in (0, 1):
+            add(f"ccitt-{mode}-photometric{ph}", bw.astype(np.uint8), "<", c, bits=1,
+                photometric=ph, rows_per_strip=37, chunks=[fax_encode(bw, mode)],
+                tags={292: (4, [int(mode == "g3_2d")])} if c == 3 else None)
+    for comp in ("group3", "group4", "tiff_ccitt", "packbits", "tiff_lzw"):
+        pil(f"pil-bilevel-{comp}", Image.fromarray(bw), compression=comp, rowsperstrip=10)
+    for comp in ("jpeg", "zstd", "lzma"):
+        pil(f"pil-rgb-{comp}", rgba[..., :3], compression=comp, rowsperstrip=16)
+        if comp != "jpeg":
+            pil(f"pil-float-{comp}-predictor3", floats, compression=comp, tiffinfo={317: 3})
+    pil("pil-gray-jpeg", gray, compression="jpeg")
+    add("ycbcr-one-sample-raw", gray, "<", 1, photometric=6)
+    add("ycbcr-one-sample-lzw", gray, "<", 5, photometric=6)
+    pil("pil-int32-zstd", (floats * 1e5).astype(np.int32), compression="zstd", tiffinfo={317: 2})
+    for ss, sampling in ((2, [2, 2]), (1, [2, 1]), (0, [1, 1])):
+        buf = io.BytesIO()
+        Image.fromarray(rgba[..., :3]).save(buf, "JPEG", quality=90, subsampling=ss)
+        tables, strip = split_jpeg_tables(buf.getvalue())
+        add(f"jpeg-ycbcr-{ss}", rgba[..., :3], "<", 7, photometric=6, rows_per_strip=37,
+            tags={347: (7, tables), 530: (3, sampling)}, chunks=[strip])
+    return cases
+
+
+TIFF_CASES = _tiff_cases()
+# PIL 12 reads big-endian signed and float samples from libtiff (every
+# compression but none) in native order as if big-endian: byte-swapped values
+# (ROADMAP C). The port gives the values; these cases hold it to PIL's array
+# swapped back.
+SWAPPED = re.compile(r"^MM-(5|8|32773|34925)-(float|int16|int32)")
+
+
+@pytest.mark.parametrize("build", [c[1] for c in TIFF_CASES], ids=[c[0] for c in TIFF_CASES])
+def test_decode_tiff_kinds_equal_pil(build, request):
+    name = request.node.callspec.id
+    data = build()
+    try:
+        im = Image.open(io.BytesIO(data))
+        want = np.asarray(im.convert("RGB")) if im.mode == "P" else np.asarray(im)
+    except (OSError, SyntaxError):  # PIL refuses the file: so does the port
+        with pytest.raises(ValueError, match="A1b|BigTIFF"):
+            decode_tiff(data)
+        return
+    got = decode_tiff(data)
+    if SWAPPED.match(name):
+        want = (want.astype(np.int16).byteswap().astype(want.dtype) if "int16" in name
+                else want.byteswap())
+    assert got.shape == want.shape and got.dtype == want.dtype.newbyteorder("="), (
+        got.shape, got.dtype, want.shape, want.dtype)
+    np.testing.assert_array_equal(got, want)
 
 
 # ---------------------------------------------------------------- PNG

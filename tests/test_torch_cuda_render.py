@@ -25,6 +25,8 @@ step at a pixel; the same for the MegaPose refiner (host renders with
 normals), and its SO(3)-grid scores.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -143,6 +145,65 @@ def test_refine_batch_device_on_the_card_matches_the_cpu(dev, tmp_path):
     want_T, want_s = cpu.refine_batch(*args)
     np.testing.assert_allclose(got_T, want_T, atol=1e-3, rtol=0)
     np.testing.assert_allclose(got_s, want_s, atol=1e-3, rtol=0)
+    card.meshes.close()
+    cpu.meshes.close()
+
+
+def test_pipelined_host_loop_on_the_card(dev, tmp_path, monkeypatch):
+    """The host loop in 1, 2 and 3 chunks on the card: each chunk's device
+    work on a stream of its own (never the default stream), no call that
+    synchronizes (torch.cuda.set_sync_debug_mode("error") raises on a
+    blocking copy, .cpu() or .item(); the loop waits on each pack's CUDA
+    event only), and every chunking within 1e-3 of the CPU's one chunk and
+    1e-5 of the card's."""
+    mesh = str(tmp_path / "cube.ply")
+    _write_cube_ply(mesh)
+    cfg = RefinerConfig(n_iterations=2, render_size=(64, 64), n_sample_points=8)
+    card = RenderCompareRefiner.create({1: mesh}, config=cfg, refiner_width=8, scorer_width=8,
+                                       device=dev)
+    cpu = RenderCompareRefiner.create({1: mesh}, config=cfg, refiner_width=8, scorer_width=8,
+                                      device="cpu")
+    rng = np.random.default_rng(1)
+    with torch.no_grad():
+        w = card.refiner_net.pose_head.weight
+        w.copy_(torch.from_numpy(rng.normal(0, 0.01, tuple(w.shape)).astype(np.float32)))
+    cpu.refiner_net.load_state_dict(card.refiner_net.state_dict())
+    cpu.scorer_net.load_state_dict(card.scorer_net.state_dict())
+    B = 3
+    gt = np.eye(4, dtype=np.float32)
+    gt[:3, 3] = [0.02, -0.01, 0.5]
+    Kf = np.array([[572.4, 0, 320], [0, 573.5, 240], [0, 0, 1.0]], np.float32)
+    rgba, _ = card.meshes.rasterizers[1].render(Kf, gt, 640, 480)
+    img = np.repeat(rgba[..., :3].transpose(2, 0, 1).astype(np.float32)[None] / 255.0, B, 0)
+    init = np.repeat(gt[None], B, 0)
+    init[:, :3, 3] += rng.uniform(-0.02, 0.02, (B, 3))
+    args = (img, np.repeat(Kf[None], B, 0), np.ones(B, np.int64), init)
+    want_T, want_s = cpu.refine_batch(*args)
+    seen = []
+    crop_step = RenderCompareRefiner._crop_step
+
+    def spy(self, imgs, *rest):
+        seen.append((imgs.shape[0], torch.cuda.current_stream(dev)))
+        return crop_step(self, imgs, *rest)
+
+    monkeypatch.setattr(RenderCompareRefiner, "_crop_step", spy)
+    out = {}
+    for chunks in (1, 2, 3):
+        r = dataclasses.replace(card, config=dataclasses.replace(cfg, pipeline_chunks=chunks))
+        r.refine_batch(*args)  # warm: cuDNN's plans, pinned blocks
+        seen.clear()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out[chunks] = r.refine_batch(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        streams = {s for _, s in seen}
+        assert len(streams) == chunks and torch.cuda.default_stream(dev) not in streams
+        assert len(seen) == chunks * (2 + 1 + 1)  # iterations, score, the init's crop
+        np.testing.assert_allclose(out[chunks][0], want_T, atol=1e-3, rtol=0)
+        np.testing.assert_allclose(out[chunks][1], want_s, atol=1e-3, rtol=0)
+        np.testing.assert_allclose(out[chunks][0], out[1][0], atol=1e-5, rtol=0)
+        np.testing.assert_allclose(out[chunks][1], out[1][1], atol=1e-5, rtol=0)
     card.meshes.close()
     cpu.meshes.close()
 

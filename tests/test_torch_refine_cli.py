@@ -173,8 +173,9 @@ def test_refine_cli_writes_the_jax_csv(tmp_path, weights):
 
 def test_refine_cli_drops_weak_instances_and_refuses(tmp_path, monkeypatch):
     """min_score (default 0.25) drops an instance whose best hypothesis is
-    weaker; the option that is not ported raises with its ROADMAP item; the
-    MegaPose options no longer do; a hypothesis of an object without a mesh
+    weaker; refine_pipeline_chunks=2 writes the rows of one chunk, and
+    raises with the device renderer or the MegaPose refiner; the MegaPose
+    options no longer raise; a hypothesis of an object without a mesh
     raises ValueError naming both. refiner_checkpoint= serves the JAX
     refiner trainer's orbax checkpoint (its save_refiner_checkpoint of
     other seeded nets than the CLIs build): the rows of refine.py serving
@@ -190,8 +191,18 @@ def test_refine_cli_drops_weak_instances_and_refuses(tmp_path, monkeypatch):
         for megapose in ([], ["refiner_type=megapose"], ["coarse_mode=so3grid"]):
             with pytest.raises(RuntimeError, match="device=cpu"):
                 refine.main(base + megapose)
-    with pytest.raises(NotImplementedError, match="A13c"):
-        refine.main(base + ["device=cpu", "refine_pipeline_chunks=2"])
+    # the pipelined host loop: each batch in two chunks, the same rows
+    chunked, _ = refine.main(base + ["device=cpu", "run_id=weak", f"save_dir={root}/chunks",
+                                     "refine_pipeline_chunks=2"])
+    got = bop_io.load_bop_csv(chunked[0])
+    assert len(got) == len(rows) == 1
+    for g, w in zip(got, rows):
+        assert (g["scene_id"], g["im_id"], g["obj_id"]) == (w["scene_id"], w["im_id"], w["obj_id"])
+        for key in ("score", "R", "t"):
+            np.testing.assert_allclose(g[key], w[key], atol=1e-6, rtol=1e-6)
+    for option in ("refine_renderer=device", "refiner_type=megapose"):
+        with pytest.raises(ValueError, match="refine_pipeline_chunks"):
+            refine.main(base + ["device=cpu", "refine_pipeline_chunks=2", option])
     orbax = osp.join(root, "orbax")
     jax_save_refiner(orbax, SimpleNamespace(refiner_vars=jax_vars(JRefiner(width=8), 2),
                                             scorer_vars=jax_vars(JScorer(width=8), 5)))
